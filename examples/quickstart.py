@@ -1,6 +1,6 @@
 """tpunmf quickstart: factorize, inspect, serve.
 
-Run:  python examples/quickstart.py          (CPU or TPU)
+Run:  python examples/quickstart.py          (CPU or GPU)
 """
 import sys
 import os

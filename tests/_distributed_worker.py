@@ -97,7 +97,7 @@ print(f"RANGE {start} {stop}")
 
 # ---- round-4: the mesh_2d schedule with the PROCESS boundary crossing
 # the 'rows' axis (each process owns one mesh row of 4 devices — the
-# DCN-shaped layout of collective_model's weak-scaling scenarios)
+# cross-host layout of collective_model's weak-scaling scenarios)
 import jax.numpy as jnp  # noqa: E402
 from jax.sharding import NamedSharding, PartitionSpec as P  # noqa: E402
 

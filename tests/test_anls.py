@@ -89,7 +89,7 @@ def test_bad_nnls_solver_raises(lowrank_data):
 
 
 def test_host_loop_matches_device_loop(lowrank_data):
-    """The TPU-safe host-driven loop must reproduce the device while_loop
+    """The host-driven loop (device_loop=False) must reproduce the device while_loop
     exactly (same math, same convergence semantics)."""
     kw = dict(min_iter=3, max_iter=20, tol1=1e-7, tol2=1e-7,
               nndsvd_init=(True, "zero"))
@@ -115,7 +115,7 @@ def test_cg_masked_solver_matches_chol_trajectory(lowrank_data):
 
 
 def test_anls_host_loop_matches_device_loop(lowrank_data, tmp_path):
-    """The host-driven path (TPU fallback) must share run_loop semantics:
+    """The host-driven path (device_loop=False) must share run_loop semantics:
     identical trajectory to the device loop, plus checkpoint/resume."""
     import numpy as np
 

@@ -165,8 +165,8 @@ def test_masked_kl_cold_rows_and_columns(rng):
     np.testing.assert_allclose(res.h[:, 7], h0[:, 7])
 
 
-class TestMaskedFusedKernels:
-    """ops/masked_fused vs the solver's jnp formulas (interpret mode)."""
+class TestMaskedStep:
+    """The masked XLA step (solvers/masked.py) vs NumPy update formulas."""
 
     def _problem(self, m=32, n=24, k=4, frac=0.6, seed=2):
         rng = np.random.default_rng(seed)
@@ -175,82 +175,64 @@ class TestMaskedFusedKernels:
         mask[3, :] = 0.0  # cold row
         w = (rng.random((m, k)) + 0.1).astype(np.float32)
         h = (rng.random((k, n)) + 0.1).astype(np.float32)
-        return map(jnp.asarray, (x, mask, w, h))
+        return x, mask, w, h
+
+    def _np_step(self, x, mask, w, h, lam, dist):
+        x, mask, w, h = (np.asarray(a, np.float64) for a in (x, mask, w, h))
+        eps = 1e-9
+        if dist == "eu":
+            w = w * ((mask * x) @ h.T) / ((mask * (w @ h)) @ h.T + lam * w + eps)
+            h = h * (w.T @ (mask * x)) / (w.T @ (mask * (w @ h)) + lam * h + eps)
+            return w, h
+        a = w * ((mask * x / (w @ h + eps)) @ h.T)
+        b = mask @ h.T
+        den = b + np.sqrt(b * b + 4.0 * lam * a)
+        w = np.where(den > 0, 2.0 * a / np.where(den > 0, den, 1.0), w)
+        c = h * (w.T @ (mask * x / (w @ h + eps)))
+        d = w.T @ mask
+        den = d + np.sqrt(d * d + 4.0 * lam * c)
+        h = np.where(den > 0, 2.0 * c / np.where(den > 0, den, 1.0), h)
+        return w, h
+
+    def _run(self, x, mask, w, h, lam, dist, iters=1):
+        return mur_masked(x, mask, w.shape[1], distance_type=dist,
+                          w_init=w, h_init=h, lambda_w=lam, lambda_h=lam,
+                          min_iter=iters, max_iter=iters, tol1=0.0, tol2=0.0)
 
     @pytest.mark.parametrize("dist", ["eu", "kl"])
     def test_w_update_matches_jnp(self, dist):
-        from tpunmf.ops.masked_fused import masked_w_update
-
         x, mask, w, h = self._problem()
-        lam = 0.05
-        eps = 1e-9
-        if dist == "eu":
-            want = w * ((mask * x) @ h.T) / (
-                (mask * (w @ h)) @ h.T + lam * w + eps)
-        else:
-            r = mask * x / (w @ h + eps)
-            a = w * (r @ h.T)
-            b = mask @ h.T
-            den = b + jnp.sqrt(b * b + 4.0 * lam * a)
-            want = jnp.where(den > 0, 2.0 * a / jnp.where(den > 0, den, 1.0), w)
-        got = masked_w_update(x, mask, w, h, distance_type=dist, lam=lam,
-                              bm=8, bn=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-6)
+        res = self._run(x, mask, w, h, 0.05, dist)
+        want_w, _ = self._np_step(x, mask, w, h, 0.05, dist)
+        np.testing.assert_allclose(res.w, want_w, rtol=2e-5, atol=2e-6)
 
     @pytest.mark.parametrize("dist", ["eu", "kl"])
     def test_h_update_matches_jnp(self, dist):
-        from tpunmf.ops.masked_fused import masked_h_update
-
         x, mask, w, h = self._problem()
-        lam = 0.02
-        eps = 1e-9
-        if dist == "eu":
-            want = h * (w.T @ (mask * x)) / (
-                w.T @ (mask * (w @ h)) + lam * h + eps)
-        else:
-            r = mask * x / (w @ h + eps)
-            c = h * (w.T @ r)
-            d = w.T @ mask
-            den = d + jnp.sqrt(d * d + 4.0 * lam * c)
-            want = jnp.where(den > 0, 2.0 * c / jnp.where(den > 0, den, 1.0), h)
-        got = masked_h_update(x, mask, w, h, distance_type=dist, lam=lam,
-                              bm=8, bn=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-6)
+        res = self._run(x, mask, w, h, 0.02, dist)
+        _, want_h = self._np_step(x, mask, w, h, 0.02, dist)
+        np.testing.assert_allclose(res.h, want_h, rtol=2e-5, atol=2e-6)
 
-    def test_full_block_kernel_path_matches(self):
-        """_mur_masked_block with fused_tile == the jnp path (interpret)."""
-        from tpunmf.solvers.common import init_carry
-        from tpunmf.solvers.masked import (_masked_eu_obj,
-                                           _mur_masked_block)
-
+    def test_full_block_matches_numpy_iterates(self):
+        """Three iterations of the solver block equal three NumPy steps,
+        objective included."""
         x, mask, w, h = self._problem()
-        obj0 = _masked_eu_obj(x, mask, w, h)
-        kw = dict(distance_type="eu", min_iter=3, max_iter=3, verbose=False)
-        ref = _mur_masked_block(x, mask, init_carry(obj0, 3, (w, h)), 3,
-                                0.0, 0.0, 0.1, 0.2, **kw)
-        import tpunmf.ops.masked_fused as mf
+        res = self._run(x, mask, w, h, 0.1, "eu", iters=3)
+        ww, hh = w, h
+        for _ in range(3):
+            ww, hh = self._np_step(x, mask, ww, hh, 0.1, "eu")
+        np.testing.assert_allclose(res.w, ww, rtol=5e-5, atol=1e-5)
+        d = mask * (x - ww @ hh)
+        np.testing.assert_allclose(res.obj_history[-1], 0.5 * np.sum(d * d),
+                                   rtol=1e-5)
 
-        orig_w, orig_h = mf.masked_w_update, mf.masked_h_update
-        mf.masked_w_update = lambda *a, **k2: orig_w(
-            *a, **{**k2, "interpret": True})
-        mf.masked_h_update = lambda *a, **k2: orig_h(
-            *a, **{**k2, "interpret": True})
-        try:
-            got = _mur_masked_block(x, mask, init_carry(obj0, 3, (w, h)), 3,
-                                    0.0, 0.0, 0.1, 0.2, fused_tile=(8, 8),
-                                    **kw)
-        finally:
-            mf.masked_w_update, mf.masked_h_update = orig_w, orig_h
-        np.testing.assert_allclose(np.asarray(got.inner[0]),
-                                   np.asarray(ref.inner[0]), rtol=5e-5,
-                                   atol=1e-5)
-        np.testing.assert_allclose(float(got.obj), float(ref.obj), rtol=1e-5)
-
-    def test_tileable_gate(self):
-        from tpunmf.ops.masked_fused import masked_tileable
-
-        assert masked_tileable(jnp.ones((512, 1024), jnp.float32), 64) \
-            is not None
-        assert masked_tileable(jnp.ones((512, 1024), jnp.float64), 64) is None
+    def test_weight_mask_scales_cells(self):
+        """A real-valued weight mask re-weights cells: doubling every
+        weight leaves the iterates unchanged (the update is homogeneous
+        in M) and doubles the EU objective's mask factor squared."""
+        x, mask, w, h = self._problem()
+        a = self._run(x, mask, w, h, 0.0, "eu", iters=2)
+        b = self._run(x, 2.0 * mask, w, h, 0.0, "eu", iters=2)
+        np.testing.assert_allclose(a.w, b.w, rtol=1e-4, atol=1e-6)
+        np.testing.assert_allclose(b.obj_history[-1],
+                                   4.0 * a.obj_history[-1], rtol=1e-4)

@@ -58,7 +58,7 @@ def test_sufficient_stats_match_numpy(rng):
 def test_forgetting_and_validation(rng):
     m = 16
     model = OnlineNMF(m, 3, rho=0.9)
-    assert model._solve_method == "chol"  # exact on CPU; CG on TPU (case B)
+    assert model._solve_method == "chol"  # the table's spd_solver
     model.partial_fit(rng.random((m, 5)))
     assert model.n_batches == 1
     with pytest.raises(ValueError):

@@ -1,465 +1,344 @@
-"""Fused Pallas kernels vs their jnp fallbacks (interpret mode on CPU)."""
+"""Fused Pallas kernels (Triton route, interpret mode on CPU) vs their
+jnp forms, the per-backend table, and the choice of kernel or XLA step."""
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
+from tpunmf.core import backend
 from tpunmf.ops import fused
 
+EPS = 1e-9
 
-@pytest.fixture
-def f32_problem(rng):
-    m, n, k = 64, 128, 16
-    x = jnp.asarray(rng.random((m, n)), dtype=jnp.float32)
-    w = jnp.asarray(rng.random((m, k)), dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)), dtype=jnp.float32)
-    return x, w, h
+
+def _kl_problem(rng, m=64, n=128, k=16, zeros=0.0):
+    x = np.asarray(rng.random((m, n)), dtype=np.float32)
+    x[x < zeros] = 0.0
+    w = jnp.asarray(rng.random((m, k)) + 0.1, dtype=jnp.float32)
+    h = jnp.asarray(rng.random((k, n)) + 0.1, dtype=jnp.float32)
+    return jnp.asarray(x), w, h
+
+
+def _kl_w_ref(x, w, h, lam):
+    a = w * ((x / (w @ h + EPS)) @ h.T)
+    b = jnp.sum(h, axis=1)[None, :]
+    return 2.0 * a / (b + jnp.sqrt(b * b + 4.0 * lam * a))
+
+
+def _kl_h_ref(x, w, h, lam):
+    c = h * (w.T @ (x / (w @ h + EPS)))
+    d = jnp.sum(w, axis=0)[:, None]
+    return 2.0 * c / (d + jnp.sqrt(d * d + 4.0 * lam * c))
 
 
 def test_tileable_picks_blocks():
+    """kernel_fits: 2-D f32/bf16 X and a rank whose padded tile fits."""
     x = jnp.zeros((256, 512), jnp.float32)
-    w = jnp.zeros((256, 16), jnp.float32)
-    h = jnp.zeros((16, 512), jnp.float32)
-    assert fused._tileable(x, w, h) is not None
-    # f64 -> no pallas tiling
-    assert fused._tileable(x.astype(jnp.float64), w, h) is None
+    assert fused.kernel_fits(x, 16)
+    assert fused.kernel_fits(x.astype(jnp.bfloat16), 50)
+    assert fused.kernel_fits(x, fused.MAX_RANK)
+    assert not fused.kernel_fits(x, fused.MAX_RANK + 1)
+    assert not fused.kernel_fits(x.astype(jnp.float64), 16)
+    assert not fused.kernel_fits(jnp.zeros((256,), jnp.float32), 16)
 
 
-def test_eu_obj_kernel_matches_fallback(f32_problem):
-    x, w, h = f32_problem
+def test_rank_gate_follows_measurement():
+    """The kernels take padded ranks up to 64 (config[1]'s rank 50 pads
+    to 64) and leave rank 128 to XLA, where the H100 measurement had the
+    XLA step faster."""
+    x = jnp.zeros((64, 64), jnp.float32)
+    assert fused.kernel_fits(x, 50) and fused.kernel_fits(x, 64)
+    assert not fused.kernel_fits(x, 65) and not fused.kernel_fits(x, 128)
+
+
+@pytest.mark.parametrize("k,padded", [(1, 16), (16, 16), (17, 32), (50, 64),
+                                      (128, 128), (129, 256)])
+def test_rank_padding(k, padded):
+    """The rank pads to a power of two >= 16 (Triton's dot minimum) with
+    zeros, which leaves W @ H unchanged."""
+    assert fused._padded_rank(k) == padded
+    w, h = jnp.ones((3, k)), jnp.ones((k, 5))
+    wp, hp = fused._pad_factors(w, h)
+    assert wp.shape == (3, padded) and hp.shape == (padded, 5)
+    np.testing.assert_array_equal(np.asarray(wp @ hp), np.asarray(w @ h))
+
+
+@pytest.mark.parametrize("shape", [(64, 128, 16), (200, 110, 5)])
+def test_eu_obj_kernel_matches_fallback(rng, shape):
+    x, w, h = _kl_problem(rng, *shape)
     ref = fused.eu_residual_obj(x, w, h, use_pallas=False)
-    tile = fused._tileable(x, w, h)
-    assert tile is not None
-    out = fused._eu_obj_pallas(x, w, h, *tile, interpret=True)
+    out = fused.eu_residual_obj(x, w, h, use_pallas=True, interpret=True)
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-5)
 
 
-def test_kl_ratio_kernel_matches_fallback(f32_problem):
-    x, w, h = f32_problem
-    ref = fused.kl_ratio(x, w, h, use_pallas=False)
-    tile = fused._tileable(x, w, h)
-    out = fused._kl_ratio_pallas(x, w, h, 1e-9, *tile, interpret=True)
-    np.testing.assert_allclose(np.asarray(out), np.asarray(ref), rtol=1e-5)
-
-
-def test_kl_ratio_obj_kernel_matches_fallback(rng):
-    m, n, k = 64, 128, 8
-    x = np.asarray(rng.random((m, n)), dtype=np.float32)
-    x[x < 0.1] = 0.0  # exercise the NaN-masking path
-    w = jnp.asarray(rng.random((m, k)), dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)), dtype=jnp.float32)
-    x = jnp.asarray(x)
-    r_ref, obj_ref = fused.kl_ratio_and_obj(x, w, h, use_pallas=False)
-    tile = fused._tileable(x, w, h)
-    r, obj = fused._kl_ratio_obj_pallas(x, w, h, 1e-9, *tile, interpret=True)
-    np.testing.assert_allclose(np.asarray(r), np.asarray(r_ref), rtol=1e-5)
-    np.testing.assert_allclose(float(obj), float(obj_ref), rtol=1e-4)
-
-
-class TestMurFused:
-    """Fused whole-iteration MUR kernels vs the jnp formulas (interpret)."""
-
-    def _setup(self, rng, m=64, n=128, k=16):
-        import jax.numpy as jnp
-
-        x = jnp.asarray(rng.random((m, n)), dtype=jnp.float32)
-        w = jnp.asarray(rng.random((m, k)) + 0.1, dtype=jnp.float32)
-        h = jnp.asarray(rng.random((k, n)) + 0.1, dtype=jnp.float32)
-        return x, w, h
-
-    @pytest.mark.parametrize("lam", [0.0, 0.2])
-    def test_w_update_eu(self, rng, lam):
-        from tpunmf.ops.mur_fused import mur_tileable, mur_w_update
-
-        x, w, h = self._setup(rng)
-        tile = mur_tileable(x, 16)
-        assert tile is not None
-        got = mur_w_update(x, w, h, distance_type="eu", lam=lam,
-                           bm=tile[0], bn=tile[1], interpret=True)
-        expect = w * (x @ h.T) / (w @ (h @ h.T) + lam * w + 1e-9)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
-                                   rtol=2e-4)
-
-    @pytest.mark.parametrize("lam", [0.0, 0.2])
-    def test_w_update_kl(self, rng, lam):
-        import jax.numpy as jnp
-
-        from tpunmf.ops.mur_fused import mur_tileable, mur_w_update
-
-        x, w, h = self._setup(rng)
-        tile = mur_tileable(x, 16)
-        got = mur_w_update(x, w, h, distance_type="kl", lam=lam,
-                           bm=tile[0], bn=tile[1], interpret=True)
-        r = x / (w @ h + 1e-9)
-        a = w * (r @ h.T)
-        b = jnp.sum(h, axis=1)[None, :]
-        expect = 2.0 * a / (b + jnp.sqrt(b * b + 4.0 * lam * a))
-        np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
-                                   rtol=2e-4)
-
-    def test_h_update_eu_and_wtx(self, rng):
-        from tpunmf.ops.mur_fused import mur_h_update, mur_tileable
-
-        x, w, h = self._setup(rng)
-        tile = mur_tileable(x, 16)
-        h_new, wtx = mur_h_update(x, w, h, distance_type="eu", lam=0.0,
-                                  bm=tile[0], bn=tile[1], interpret=True)
-        np.testing.assert_allclose(np.asarray(wtx), np.asarray(w.T @ x),
-                                   rtol=2e-4)
-        expect = h * (w.T @ x) / ((w.T @ w) @ h + 1e-9)
-        np.testing.assert_allclose(np.asarray(h_new), np.asarray(expect),
-                                   rtol=2e-4)
-
-    def test_h_update_kl(self, rng):
-        import jax.numpy as jnp
-
-        from tpunmf.ops.mur_fused import mur_h_update, mur_tileable
-
-        x, w, h = self._setup(rng)
-        tile = mur_tileable(x, 16)
-        h_new, _ = mur_h_update(x, w, h, distance_type="kl", lam=0.1,
-                                bm=tile[0], bn=tile[1], interpret=True)
-        r = x / (w @ h + 1e-9)
-        c = h * (w.T @ r)
-        d = jnp.sum(w, axis=0)[:, None]
-        expect = 2.0 * c / (d + jnp.sqrt(d * d + 4.0 * 0.1 * c))
-        np.testing.assert_allclose(np.asarray(h_new), np.asarray(expect),
-                                   rtol=2e-4)
-
-
-def test_kl_obj_kernel_matches_fallback(rng):
-    import jax.numpy as jnp
-
-    from tpunmf.ops import fused
-
-    m, n, k = 64, 128, 8
-    x = np.asarray(rng.random((m, n)), dtype=np.float32)
-    x[x < 0.1] = 0.0
-    x = jnp.asarray(x)
-    w = jnp.asarray(rng.random((m, k)), dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)), dtype=jnp.float32)
+@pytest.mark.parametrize("shape", [(64, 128, 8), (200, 110, 5)])
+def test_kl_obj_kernel_matches_fallback(rng, shape):
+    x, w, h = _kl_problem(rng, *shape, zeros=0.1)
     ref = fused.kl_obj(x, w, h, use_pallas=False)
-    tile = fused._tileable(x, w, h)
-    out = fused._kl_obj_pallas(x, w, h, *tile, interpret=True)
+    out = fused.kl_obj(x, w, h, use_pallas=True, interpret=True)
     np.testing.assert_allclose(float(out), float(ref), rtol=1e-4)
 
 
+def test_objective_kernels_zero_weight_rows(rng):
+    """The reference's masking: x > 0 over wh == 0 is +inf -> 0, and
+    x == 0 over wh == 0 is NaN -> 0 (nmf/utils.py:23-26)."""
+    x, w, h = _kl_problem(rng, 48, 40, 4, zeros=0.3)
+    w = w.at[5].set(0.0)
+    ref = fused.kl_obj(x, w, h)
+    out = fused.kl_obj(x, w, h, use_pallas=True, interpret=True)
+    assert np.isfinite(float(out))
+    np.testing.assert_allclose(float(out), float(ref), rtol=1e-4)
+
+
+class TestMurFused:
+    """KL W/H passes vs the jnp formulas (interpret mode)."""
+
+    @pytest.mark.parametrize("lam", [0.0, 0.2])
+    def test_w_update_kl(self, rng, lam):
+        x, w, h = _kl_problem(rng)
+        got = fused.kl_w_update(x, w, h, lam, interpret=True)
+        np.testing.assert_allclose(np.asarray(got),
+                                   np.asarray(_kl_w_ref(x, w, h, lam)),
+                                   rtol=2e-4)
+
+    @pytest.mark.parametrize("lam", [0.0, 0.1])
+    def test_h_update_kl(self, rng, lam):
+        x, w, h = _kl_problem(rng)
+        got = fused.kl_h_update(x, w, h, lam, interpret=True)
+        np.testing.assert_allclose(np.asarray(got),
+                                   np.asarray(_kl_h_ref(x, w, h, lam)),
+                                   rtol=2e-4)
+
+    def test_output_shapes_and_dtypes(self, rng):
+        x, w, h = _kl_problem(rng, 37, 150, 20)
+        wn = fused.kl_w_update(x.astype(jnp.bfloat16), w, h, 0.0,
+                               interpret=True)
+        hn = fused.kl_h_update(x, w, h, 0.0, interpret=True)
+        assert wn.shape == w.shape and wn.dtype == jnp.float32
+        assert hn.shape == h.shape and hn.dtype == jnp.float32
+
+
 def test_mur_fused_bf16_data(rng):
-    """bf16 X storage with f32 factors: fused W update stays close to the
-    f32 computation (data-precision-level tolerance)."""
-    import jax.numpy as jnp
-
-    from tpunmf.ops.mur_fused import mur_tileable, mur_w_update
-
-    m, n, k = 64, 128, 16
-    x32 = jnp.asarray(rng.random((m, n)), dtype=jnp.float32)
-    w = jnp.asarray(rng.random((m, k)) + 0.1, dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)) + 0.1, dtype=jnp.float32)
+    """bf16 X storage with f32 factors: the W pass widens X in registers,
+    so it equals the f32 formula on the bf16-rounded data."""
+    x32, w, h = _kl_problem(rng)
     x16 = x32.astype(jnp.bfloat16)
-    tile = mur_tileable(x16, k)
-    assert tile is not None
-    got = mur_w_update(x16, w, h, distance_type="eu", lam=0.0,
-                       bm=tile[0], bn=tile[1], interpret=True)
-    expect = w * (x32 @ h.T) / (w @ (h @ h.T) + 1e-9)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(expect), rtol=0.05)
+    got = fused.kl_w_update(x16, w, h, 0.0, interpret=True)
+    expect = _kl_w_ref(x16.astype(jnp.float32), w, h, 0.0)
+    np.testing.assert_allclose(np.asarray(got), np.asarray(expect),
+                               rtol=2e-4)
 
 
 def test_w_update_kl_lagged_obj(rng):
-    """The lagged-objective KL W-pass returns KL(x, w@h) of the incoming
+    """The lagged-objective KL W pass returns KL(x, w@h) of the incoming
     factors alongside the same updated W."""
-    import jax.numpy as jnp
-
-    from tpunmf.ops import fused
-    from tpunmf.ops.mur_fused import mur_tileable, mur_w_update
-
-    m, n, k = 64, 128, 16
-    x = np.asarray(rng.random((m, n)), dtype=np.float32)
-    x[x < 0.1] = 0.0
-    x = jnp.asarray(x)
-    w = jnp.asarray(rng.random((m, k)) + 0.1, dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)) + 0.1, dtype=jnp.float32)
-    tile = mur_tileable(x, k)
-    plain = mur_w_update(x, w, h, distance_type="kl", lam=0.0,
-                         bm=tile[0], bn=tile[1], interpret=True)
-    lagged_w, obj = mur_w_update(x, w, h, distance_type="kl", lam=0.0,
-                                 bm=tile[0], bn=tile[1],
-                                 with_lagged_obj=True, interpret=True)
+    x, w, h = _kl_problem(rng, zeros=0.1)
+    plain = fused.kl_w_update(x, w, h, 0.0, interpret=True)
+    lagged_w, obj = fused.kl_w_update(x, w, h, 0.0, with_obj=True,
+                                      interpret=True)
     np.testing.assert_allclose(np.asarray(lagged_w), np.asarray(plain),
                                rtol=1e-6)
-    ref_obj = fused.kl_obj(x, w, h, use_pallas=False)
-    np.testing.assert_allclose(float(obj), float(ref_obj), rtol=1e-4)
+    np.testing.assert_allclose(float(obj), float(fused.kl_obj(x, w, h)),
+                               rtol=1e-4)
 
 
-@pytest.mark.parametrize("lam", [0.0, 0.3])
-def test_single_pass_iteration_eu(rng, lam):
-    """mur_iteration_eu (one pass over x) vs the jnp step formulas."""
-    from tpunmf.ops.mur_fused import mur_iteration_eu
+def _jaxpr_pallas_params(fn, *args):
+    """Params of every pallas_call in fn's jaxpr."""
+    out = []
 
-    m, n, k = 128, 256, 16
-    eps = 1e-9
-    x = jnp.asarray(rng.random((m, n)), dtype=jnp.float32)
-    w = jnp.asarray(rng.random((m, k)), dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)), dtype=jnp.float32)
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "pallas_call":
+                out.append(eqn.params)
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
 
-    w1, wtx, gw = mur_iteration_eu(x, w, h, lam_w=lam, bm=32, interpret=True)
-    w_ref = np.asarray(w) * np.asarray(x @ h.T) / (
-        np.asarray(w @ (h @ h.T)) + lam * np.asarray(w) + eps)
-    np.testing.assert_allclose(np.asarray(w1), w_ref, rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(wtx), w_ref.T @ np.asarray(x),
-                               rtol=2e-5)
-    np.testing.assert_allclose(np.asarray(gw), w_ref.T @ w_ref, rtol=2e-5)
+    walk(jax.make_jaxpr(fn)(*args).jaxpr)
+    return out
 
 
-def test_single_pass_iteration_eu_bf16(rng):
-    from tpunmf.ops.mur_fused import iter_eu_tileable, mur_iteration_eu
-
-    m, n, k = 64, 128, 8
-    x = jnp.asarray(rng.random((m, n)), dtype=jnp.float32)
-    w = jnp.asarray(rng.random((m, k)), dtype=jnp.float32)
-    h = jnp.asarray(rng.random((k, n)), dtype=jnp.float32)
-    xb = x.astype(jnp.bfloat16)
-    assert iter_eu_tileable(xb, k) is not None
-    w1, wtx, gw = mur_iteration_eu(xb, w, h, lam_w=0.0, bm=32, interpret=True)
-    eps = 1e-9
-    xf = np.asarray(xb.astype(jnp.float32))
-    w_ref = np.asarray(w) * (xf @ np.asarray(h).T) / (
-        np.asarray(w @ (h @ h.T)) + eps)
-    np.testing.assert_allclose(np.asarray(w1), w_ref, rtol=2e-2)
-    assert np.all(np.isfinite(np.asarray(wtx)))
-
-
-@pytest.mark.parametrize("bs", [None, 64])
-def test_single_pass_iteration_kl(rng, bs):
-    """mur_iteration_kl (resident and column-subblocked) vs jnp formulas."""
-    from tpunmf.ops.mur_fused import mur_iteration_kl
-
-    m, n, k = 64, 128, 8
-    lam = 0.2
-    eps = 1e-9
-    x = np.asarray(rng.random((m, n)), dtype=np.float32)
-    x[x < 0.2] = 0.0  # exercise the masked-KL zeros path
-    w = np.asarray(rng.random((m, k)) + 0.1, dtype=np.float32)
-    h = np.asarray(rng.random((k, n)) + 0.1, dtype=np.float32)
-
-    w1, wtr, obj = mur_iteration_kl(
-        jnp.asarray(x), jnp.asarray(w), jnp.asarray(h),
-        lam_w=lam, bm=32, bs=bs, interpret=True)
-
-    wh = w @ h
-    numer = (x / (wh + eps)) @ h.T
-    a = w * numer
-    b = np.sum(h, axis=1)[None, :]
-    w_ref = 2.0 * a / (b + np.sqrt(b * b + 4.0 * lam * a))
-    np.testing.assert_allclose(np.asarray(w1), w_ref, rtol=2e-5)
-
-    wtr_ref = w_ref.T @ (x / (w_ref @ h + eps))
-    np.testing.assert_allclose(np.asarray(wtr), wtr_ref, rtol=2e-5)
-
-    with np.errstate(divide="ignore", invalid="ignore"):
-        val = x * np.log(x / wh)
-    val[~np.isfinite(val)] = 0.0
-    obj_ref = np.sum(val - x + wh)
-    np.testing.assert_allclose(float(obj), obj_ref, rtol=1e-4)
+def test_kernels_name_route_and_stable_names(rng):
+    """Every kernel names the Triton route explicitly (a call that names
+    none gets Mosaic GPU in this JAX) and carries a stable name a trace
+    can find."""
+    x, w, h = _kl_problem(rng, 32, 32, 4)
+    calls = {
+        "mur_kl_w_pass": lambda x, w, h: fused.kl_w_update(x, w, h, 0.0),
+        "mur_kl_w_pass_obj": lambda x, w, h: fused.kl_w_update(
+            x, w, h, 0.0, with_obj=True),
+        "mur_kl_h_pass": lambda x, w, h: fused.kl_h_update(x, w, h, 0.0),
+        "kl_objective": lambda x, w, h: fused.kl_obj(x, w, h, use_pallas=True),
+        "eu_objective": lambda x, w, h: fused.eu_residual_obj(
+            x, w, h, use_pallas=True),
+    }
+    for name, fn in calls.items():
+        (params,) = _jaxpr_pallas_params(fn, x, w, h)
+        assert params["backend"] == "triton"
+        assert params["name"] == name
 
 
-def test_iter_kl_tileable_selection():
-    """Resident single-pass engages where its full-width temps fit; wide-n
-    shapes fall back to the 2-pass path (the column-subblocked single-pass
-    variant measured SLOWER there — see iter_kl_tileable docstring — so it
-    is opt-in via mur_iteration_kl(bs=...) and never auto-selected)."""
-    from tpunmf.ops.mur_fused import iter_kl_tileable
+def _kernel_dot_precisions(fn, *args):
+    """precision of every dot_general inside fn's Pallas kernels."""
+    out = []
 
-    k = 128
-    narrow = jax.ShapeDtypeStruct((8192, 4096), jnp.float32)
-    wide = jax.ShapeDtypeStruct((8192, 8192), jnp.float32)
-    sel_narrow = iter_kl_tileable(narrow, k)
-    assert sel_narrow is not None and sel_narrow[1] is None
-    assert iter_kl_tileable(wide, k) is None
+    def walk(jaxpr):
+        for eqn in jaxpr.eqns:
+            if eqn.primitive.name == "dot_general":
+                out.append(eqn.params["precision"])
+            for sub in jax.core.jaxprs_in_params(eqn.params):
+                walk(sub)
 
-
-class TestHalsSweepKernel:
-    """Pallas Gauss-Seidel sweep vs the solver's XLA fori chain."""
-
-    def _problem(self, m=48, n=40, k=16, seed=11):
-        rng = np.random.default_rng(seed)
-        x = (rng.random((m, k)) @ rng.random((k, n)) + 0.05).astype(np.float32)
-        w = rng.random((m, k)).astype(np.float32) + 0.1
-        h = rng.random((k, n)).astype(np.float32) + 0.1
-        return jnp.asarray(x), jnp.asarray(w), jnp.asarray(h)
-
-    @pytest.mark.parametrize("nsweeps", [1, 2])
-    @pytest.mark.parametrize("lam", [0.0, 0.3])
-    def test_w_sweep_matches_xla(self, nsweeps, lam):
-        from tpunmf.ops.hals_sweep import gs_sweep
-        from tpunmf.solvers.hals import _hals_sweep_w
-
-        x, w, h = self._problem()
-        xht = (x @ h.T).astype(jnp.float32)
-        hht = (h @ h.T).astype(jnp.float32)
-        want = w
-        for _ in range(nsweeps):
-            want = _hals_sweep_w(want, xht, hht, lam)
-        got = gs_sweep(xht.T, hht, w.T, lam=lam, nsweeps=nsweeps, bm=16,
-                       interpret=True).T
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-5)
-
-    def test_h_sweep_matches_xla(self):
-        from tpunmf.ops.hals_sweep import gs_sweep
-        from tpunmf.solvers.hals import _hals_sweep_h
-
-        x, w, h = self._problem()
-        wtx = (w.T @ x).astype(jnp.float32)
-        wtw = (w.T @ w).astype(jnp.float32)
-        want = _hals_sweep_h(h, wtx, wtw, 0.0)
-        got = gs_sweep(wtx, wtw, h, lam=0.0, nsweeps=1, bm=8, interpret=True)
-        np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                                   rtol=2e-5, atol=2e-5)
-
-    def test_tileable_gate(self):
-        from tpunmf.ops.hals_sweep import gs_sweep_tileable
-
-        # 24 (k, bm)-equivalents budgeted (measured scoped-VMEM stack of
-        # the unrolled select chain on v5e) -> bm=1024 at k=128
-        assert gs_sweep_tileable(128, 8192) == 1024
-        assert gs_sweep_tileable(12, 1024) is None    # k % 8 != 0
-        assert gs_sweep_tileable(512, 8192) is None   # k too large
-        assert gs_sweep_tileable(128, 100) is None    # no dividing strip
-
-    def test_full_hals_block_via_kernel_matches(self):
-        """Whole _hals_block with the kernel path == the XLA path."""
-        from tpunmf.solvers.common import init_carry
-        from tpunmf.solvers.hals import _hals_block
-        from tpunmf.ops.fused import eu_residual_obj
-
-        x, w, h = self._problem(m=64, n=32, k=8)
-        obj0 = eu_residual_obj(x, w, h)
-        kw = dict(min_iter=4, max_iter=4, inner_sweeps=2, objective="exact",
-                  verbose=False)
-        ca = init_carry(obj0, 4, (w, h))
-        ref = _hals_block(x, jnp.sum(x * x), ca, 4, 0.0, 0.0, 0.1, 0.2, **kw)
-        cb = init_carry(obj0, 4, (w, h))
-        # interpret-mode Pallas inside the block: wrap gs_sweep
-        # (tpunmf.solvers.hals the ATTRIBUTE is the function — fetch the
-        # module through importlib)
-        import importlib
-
-        hals_mod = importlib.import_module("tpunmf.solvers.hals")
-        import tpunmf.ops.hals_sweep as hs
-        orig = hals_mod.gs_sweep
-        hals_mod.gs_sweep = lambda *a, **k2: hs.gs_sweep(
-            *a, **{**k2, "interpret": True})
-        try:
-            got = _hals_block(x, jnp.sum(x * x), cb, 4, 0.0, 0.0, 0.1, 0.2,
-                              sweep_bm_w=16, sweep_bm_h=8, **kw)
-        finally:
-            hals_mod.gs_sweep = orig
-        np.testing.assert_allclose(np.asarray(got.inner[0]),
-                                   np.asarray(ref.inner[0]), rtol=1e-4,
-                                   atol=1e-4)
-        np.testing.assert_allclose(np.asarray(got.inner[1]),
-                                   np.asarray(ref.inner[1]), rtol=1e-4,
-                                   atol=1e-4)
-        np.testing.assert_allclose(float(got.obj), float(ref.obj), rtol=1e-5)
-
-    def test_single_pass_hals_iteration_matches(self):
-        """hals_iteration_eu == xht/hht + sweeps + cross-products."""
-        from tpunmf.ops.hals_sweep import hals_iteration_eu
-        from tpunmf.solvers.hals import _hals_sweep_w
-
-        x, w, h = self._problem(m=64, n=48, k=8)
-        lam = 0.05
-        nsweeps = 2
-        xht = (x @ h.T).astype(jnp.float32)
-        hht = (h @ h.T).astype(jnp.float32)
-        want_w = w
-        for _ in range(nsweeps):
-            want_w = _hals_sweep_w(want_w, xht, hht, lam)
-        want_wtx = want_w.T @ x
-        want_gw = want_w.T @ want_w
-        got_w, got_wtx, got_gw = hals_iteration_eu(
-            x, w, h, lam_w=lam, nsweeps=nsweeps, bm=16, interpret=True)
-        np.testing.assert_allclose(np.asarray(got_w), np.asarray(want_w),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(got_wtx), np.asarray(want_wtx),
-                                   rtol=2e-4, atol=2e-4)
-        np.testing.assert_allclose(np.asarray(got_gw), np.asarray(want_gw),
-                                   rtol=2e-4, atol=2e-4)
-
-    def test_single_pass_hals_tileable(self):
-        from tpunmf.ops.hals_sweep import hals_iter_tileable
-
-        assert hals_iter_tileable(
-            jnp.ones((8192, 8192), jnp.float32), 128) is not None
-        assert hals_iter_tileable(
-            jnp.ones((8192, 8192), jnp.float64), 128) is None
-
-    @pytest.mark.parametrize("nsweeps", [1, 2])
-    def test_fori_variant_matches_unrolled(self, nsweeps):
-        from tpunmf.ops.hals_sweep import gs_sweep
-
-        x, w, h = self._problem()
-        xht = (x @ h.T).astype(jnp.float32)
-        hht = (h @ h.T).astype(jnp.float32)
-        a = gs_sweep(xht.T, hht, w.T, lam=0.1, nsweeps=nsweeps, bm=16,
-                     interpret=True, unrolled=True)
-        b = gs_sweep(xht.T, hht, w.T, lam=0.1, nsweeps=nsweeps, bm=16,
-                     interpret=True, unrolled=False)
-        # same math, different f32 accumulation path (running rank-1
-        # update vs on-demand row dot)
-        np.testing.assert_allclose(np.asarray(a), np.asarray(b),
-                                   rtol=1e-4, atol=1e-5)
+    for params in _jaxpr_pallas_params(fn, *args):
+        walk(params["jaxpr"])
+    return out
 
 
-def test_tileable_helpers_respect_hw_tile_and_vmem_rules():
-    """Hardware-only constraints the kernels must respect (Mosaic rejects
-    them on TPU, interpret mode does not): bf16 block sublane dims must
-    be 16-multiples, and VMEM budgets must count double-buffered windows
-    and in-kernel cast copies."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from tpunmf.ops.hals_sweep import gs_sweep_tileable, hals_iter_tileable
-    from tpunmf.ops.masked_fused import masked_tileable
-    from tpunmf.ops.mur_fused import iter_eu_tileable, mur_tileable
-
-    # gs_sweep at k=256: the double-buffered (a, v, out) windows + p must
-    # fit 12MB -> bm 2048 would need ~19MB and must NOT be selected
-    bm = gs_sweep_tileable(256, 8192)
-    assert bm is not None and (9 * 256 * bm + 256 * 256) * 4 <= 12 * 2**20
-    assert bm <= 1024
-
-    x_bf16 = jnp.zeros((8192, 8192), dtype=jnp.bfloat16)
-    # any bf16 selection must keep the X strip sublane dim a 16-multiple
-    sel = mur_tileable(x_bf16, 960)
-    assert sel is None or sel[0] % 16 == 0
-    sel = masked_tileable(x_bf16, 960)
-    assert sel is None or sel[0] % 16 == 0
-    # masks can ride as bf16 even when X is f32 -> rule applies to f32 too
-    sel = masked_tileable(jnp.zeros((8192, 8192), jnp.float32), 960)
-    assert sel is None or sel[0] % 16 == 0
-
-    bm = iter_eu_tileable(jnp.zeros((8192, 16384), jnp.bfloat16), 96)
-    assert bm is None or bm % 16 == 0
-    if bm is not None:  # H^T arrives pre-cast to X's dtype (bf16); the
-        # budget covers it, the f32 WtX accumulator, grams, and the
-        # double-buffered X strips
-        need = (96 * 16384 * 2 + 96 * 16384 * 4 + 2 * 96 * 96 * 4
-                + 2 * bm * 16384 * 2 + 3 * bm * 96 * 4)
-        assert need <= 14 * 2**20
-    bm = hals_iter_tileable(jnp.zeros((8192, 8192), jnp.bfloat16), 128)
-    assert bm is None or bm % 16 == 0
+def test_kernel_precision_follows_caller(rng):
+    """The X-sized products inside the kernels take the caller's matmul
+    precision: none pinned by default (TF32 on the H100), HIGHEST under
+    jax.default_matmul_precision('highest')."""
+    x, w, h = _kl_problem(rng, 32, 32, 4)
+    f = lambda x, w, h: fused.kl_h_update(x, w, h, 0.0)
+    default = _kernel_dot_precisions(f, x, w, h)
+    assert len(default) == 2
+    assert all(p is None for p in default)
+    with jax.default_matmul_precision("highest"):
+        highest = _kernel_dot_precisions(f, x, w, h)
+    assert all(p == (jax.lax.Precision.HIGHEST,) * 2 for p in highest)
 
 
-def test_dimension_semantics_rejects_parallel_revisit_axis():
-    import jax.numpy as jnp
-    import pytest
+# ----------------------------------------------------- per-backend table
 
-    from tpunmf.ops.mur_fused import mur_w_update
 
-    x = jnp.ones((64, 128), jnp.float32)
-    w = jnp.ones((64, 8), jnp.float32)
-    h = jnp.ones((8, 128), jnp.float32)
-    with pytest.raises(ValueError, match="revisiting"):
-        mur_w_update(x, w, h, distance_type="eu", lam=0.0, bm=8, bn=128,
-                     dimension_semantics=("parallel", "parallel"))
+def test_backend_table_gpu_row():
+    row = backend.defaults("gpu")
+    assert row.pallas
+    assert row.spd_solver == "chol" and row.cg_iters == 0
+    assert row.nnls_precision == "highest"
+    assert row.inner_loop == "while"
+    assert row.rsvd_threshold == backend.defaults("cpu").rsvd_threshold
+
+
+def test_backend_table_cpu_row():
+    row = backend.defaults("cpu")
+    assert not row.pallas
+    assert row.spd_solver == "chol" and row.cg_iters == 0
+    assert row.nnls_precision is None and row.inner_loop == "while"
+
+
+def test_backend_table_unknown_backend_raises():
+    with pytest.raises(ValueError, match="no per-backend defaults"):
+        backend.defaults("metal")
+
+
+def test_backend_table_default_is_current_backend():
+    assert backend.defaults() is backend.defaults(jax.default_backend())
+
+
+# ------------------------------------------------ kernel or XLA step
+
+
+@pytest.fixture
+def as_gpu(monkeypatch):
+    """Make the table answer as on the GPU (the choice is pure Python)."""
+    monkeypatch.setattr(backend.jax, "default_backend", lambda: "gpu")
+
+
+def test_use_kernels_cpu_default_is_xla(rng):
+    x = jnp.ones((64, 32), jnp.float32)
+    assert backend.use_kernels(x, 8, None) is False
+    assert backend.use_kernels(x, 8, False) is False
+
+
+def test_use_pallas_true_on_cpu_raises():
+    """No kernel on this backend: an explicit request is an error, never
+    a silent fall back to the interpreter or to XLA."""
+    x = jnp.ones((64, 32), jnp.float32)
+    with pytest.raises(ValueError, match="no Pallas kernels"):
+        backend.use_kernels(x, 8, True)
+
+
+def test_mur_use_pallas_true_on_cpu_raises():
+    from tpunmf.solvers import mur
+
+    x = np.ones((16, 12), np.float32)
+    with pytest.raises(ValueError, match="no Pallas kernels"):
+        mur(x, 2, use_pallas=True, max_iter=2)
+
+
+@pytest.mark.parametrize("dtype,k,want", [
+    (jnp.float32, 8, True),
+    (jnp.bfloat16, 50, True),
+    (jnp.float64, 8, False),            # no f64 kernel: XLA step
+    (jnp.float32, fused.MAX_RANK + 1, False),
+])
+def test_use_kernels_shapes_and_dtypes(as_gpu, dtype, k, want):
+    x = jnp.ones((64, 32), dtype)
+    assert backend.use_kernels(x, k, None) is want
+    assert backend.use_kernels(x, k, False) is False
+
+
+def test_use_kernels_sharded_x_takes_xla(as_gpu):
+    """A pallas_call is not partitioned, so a sharded X would be gathered
+    whole onto every device: sharded inputs take the XLA step."""
+    from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+
+    devs = np.array(jax.devices()[:4])
+    if devs.size < 2:
+        pytest.fail("conftest provides 8 CPU devices")
+    mesh = Mesh(devs, ("cols",))
+    x = jax.device_put(jnp.ones((16, 64), jnp.float32),
+                       NamedSharding(mesh, P(None, "cols")))
+    assert backend.use_kernels(x, 8, None) is False
+    assert backend.use_kernels(x, 8, True) is False
+    one = jax.device_put(jnp.ones((16, 64), jnp.float32), jax.devices()[0])
+    assert backend.use_kernels(one, 8, None) is True
+
+
+def _interpret_kernels(monkeypatch):
+    """Route mur's kernel calls through interpret mode (CPU stand-in for
+    the compiled kernels) so the whole solver step can be checked."""
+    import importlib
+
+    mur_mod = importlib.import_module("tpunmf.solvers.mur")
+    for name in ("kl_w_update", "kl_h_update"):
+        monkeypatch.setattr(mur_mod, name, functools.partial(
+            getattr(fused, name), interpret=True))
+    monkeypatch.setattr(mur_mod, "kl_obj", functools.partial(
+        fused.kl_obj, interpret=True))
+    return mur_mod
+
+
+@pytest.mark.parametrize("objective_every", [1, 3])
+def test_kernel_step_matches_xla_step(monkeypatch, rng, objective_every):
+    """The solver's kernel step (3 fused passes) equals its XLA step
+    (ratio carried between passes) over several iterations."""
+    mur_mod = _interpret_kernels(monkeypatch)
+    x, w, h = _kl_problem(rng, 40, 56, 4, zeros=0.2)
+    kw = dict(distance_type="kl", min_iter=6, max_iter=6, tol1=0.0,
+              tol2=0.0, w_init=w, h_init=h, objective_every=objective_every)
+    monkeypatch.setattr(mur_mod, "use_kernels", lambda x, k, up: True)
+    got = mur_mod.mur(x, 4, **kw)
+    monkeypatch.setattr(mur_mod, "use_kernels", lambda x, k, up: False)
+    ref = mur_mod.mur(x, 4, **kw)
+    np.testing.assert_allclose(got.w, ref.w, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(got.h, ref.h, rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(np.asarray(got.obj_history),
+                               np.asarray(ref.obj_history), rtol=1e-4)
+
+
+def test_kernel_step_lagged_objective(monkeypatch, rng):
+    """objective='lagged' records KL of the incoming iterate from the W
+    pass: entry i+1 of the lagged trace is entry i of the exact one."""
+    mur_mod = _interpret_kernels(monkeypatch)
+    monkeypatch.setattr(mur_mod, "use_kernels", lambda x, k, up: True)
+    x, w, h = _kl_problem(rng, 40, 56, 4, zeros=0.2)
+    kw = dict(distance_type="kl", min_iter=5, max_iter=5, tol1=0.0,
+              tol2=0.0, w_init=w, h_init=h)
+    exact = mur_mod.mur(x, 4, objective="exact", **kw)
+    lagged = mur_mod.mur(x, 4, objective="lagged", **kw)
+    np.testing.assert_allclose(lagged.w, exact.w, rtol=1e-6)
+    np.testing.assert_allclose(np.asarray(lagged.obj_history)[1:],
+                               np.asarray(exact.obj_history)[:-1], rtol=1e-4)

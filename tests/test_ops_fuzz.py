@@ -1,23 +1,22 @@
-"""Kernel-shape fuzz tier (round-4): the Pallas kernels in interpret
-mode across dtype x (m, n, k) x tile-boundary combinations, asserting
-equality with the jnp step formulas.
+"""Shape fuzz tier: the Triton-route Pallas kernels in interpret mode
+across dtype x (m, n, k) x tile-boundary combinations, and the XLA steps
+that run everywhere else, each against the jnp / NumPy step formulas.
 
-Interpret mode validates the math and the grid/indexing/accumulator
-logic (block truncation, epilogue-on-last-step, revisit accumulation);
-the Mosaic rules hardware additionally enforces (sublane tile multiples,
-VMEM budgets) are covered by the *_tileable gates in test_ops.py /
-test_layout_rank.py.  This tier protects the round-3 hardware fixes —
-the bf16 pre-cast H^T single-pass path and the int8-mask DMA ride —
-from shape-dependent regressions.
+Interpret mode validates the math and the indexing (ragged-edge masks,
+the rank padding, the per-program partial sums); what only the GPU's
+compiler enforces (shared memory, registers) is checked on the card by
+the ``gpu``-marked tests and chip_smoke.py.
 
-Reference math: nmf/mur.py:29-49 (updates), nmf/utils.py (objectives);
-masked variants per solvers/masked.py's oracle in test_masked.py.
+Reference math: nmf/mur.py:20-49 (updates), nmf/utils.py (objectives);
+masked variants per solvers/masked.py's formulas; HALS per the rank-1
+closed form in solvers/hals.py.
 """
-import itertools
-
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+
+from tpunmf.ops import fused
 
 EPS = 1e-9
 
@@ -32,304 +31,315 @@ def _problem(seed, m, n, k, zeros=False):
     return jnp.asarray(x), jnp.asarray(w), jnp.asarray(h)
 
 
-# (m, n, k, bm, bn) — single-block, multi-block on each axis, non-pow2
-# and non-8-multiple ranks, rank 1, and tall/wide aspect ratios
-TWO_PASS_SHAPES = [
-    (8, 128, 4, 8, 128),       # single block both axes
-    (16, 128, 8, 8, 128),      # 2 row blocks
-    (8, 256, 8, 8, 128),       # 2 col blocks
-    (32, 384, 12, 16, 128),    # 2x3 grid, k % 8 != 0
-    (64, 256, 16, 32, 256),    # bn == n/1 boundary
-    (24, 128, 20, 8, 128),     # 3 row blocks, k=20
-    (128, 512, 8, 64, 128),    # wide grid
-    (16, 128, 1, 16, 128),     # rank 1
-    (40, 640, 24, 8, 128),     # 5x5 grid, odd-ish everything
+def _np_kl_w(x, w, h, lam):
+    a = w * ((x / (w @ h + EPS)) @ h.T)
+    b = np.sum(h, axis=1)[None, :]
+    return 2.0 * a / (b + np.sqrt(b * b + 4.0 * lam * a))
+
+
+def _np_kl_h(x, w, h, lam):
+    c = h * (w.T @ (x / (w @ h + EPS)))
+    d = np.sum(w, axis=0)[:, None]
+    return 2.0 * c / (d + np.sqrt(d * d + 4.0 * lam * c))
+
+
+def _np_kl_obj(x, w, h):
+    wh = w @ h
+    with np.errstate(divide="ignore", invalid="ignore"):
+        val = x * np.log(x / wh)
+    val[~np.isfinite(val)] = 0.0
+    return np.sum(val - x + wh)
+
+
+def _f64(*a):
+    return [np.asarray(jnp.asarray(v).astype(jnp.float32), np.float64)
+            for v in a]
+
+
+# (m, n, k, bm, bn) — single tile, exact multiples, ragged edges on each
+# axis (the config[1] case: no power-of-two tile divides m or n), m or n
+# below one tile, ranks that pad (1, 5, 20, 33) and one that does not
+KERNEL_SHAPES = [
+    (16, 16, 4, 16, 16),       # one tile, rank pads 4 -> 16
+    (64, 128, 8, 16, 32),      # 4 x 4 tiles
+    (200, 110, 5, 64, 64),     # ragged both axes
+    (37, 150, 20, 16, 64),     # ragged, rank 20 -> 32
+    (128, 64, 16, 32, 32),     # exact multiples, rank 16 unpadded
+    (96, 300, 12, 32, 64),     # ragged columns
+    (20, 1000, 1, 16, 128),    # rank 1, wide
+    (130, 70, 33, 64, 16),     # rank 33 -> 64
+    (10, 12, 3, 16, 16),       # smaller than one tile
 ]
+IDS = [f"{m}x{n}x{k}" for m, n, k, _, _ in KERNEL_SHAPES]
 
 
-@pytest.mark.parametrize("dist", ["eu", "kl"])
-@pytest.mark.parametrize("shape", TWO_PASS_SHAPES,
-                         ids=[f"{m}x{n}x{k}" for m, n, k, _, _ in TWO_PASS_SHAPES])
+@pytest.mark.parametrize("dist", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=IDS)
 @pytest.mark.parametrize("lam", [0.0, 0.15])
 def test_w_update_fuzz(shape, dist, lam):
-    from tpunmf.ops.mur_fused import mur_w_update
-
+    """KL W pass for f32 and bf16 X (parameter ``dist`` is X's dtype)."""
     m, n, k, bm, bn = shape
     x, w, h = _problem(m * 1000 + n + k, m, n, k)
-    got = mur_w_update(x, w, h, distance_type=dist, lam=lam,
-                       bm=bm, bn=bn, interpret=True)
-    if dist == "eu":
-        want = w * (x @ h.T) / (w @ (h @ h.T) + lam * w + EPS)
-    else:
-        r = x / (w @ h + EPS)
-        a = w * (r @ h.T)
-        b = jnp.sum(h, axis=1)[None, :]
-        want = 2.0 * a / (b + jnp.sqrt(b * b + 4.0 * lam * a))
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
+    if dist == "bf16":
+        x = x.astype(jnp.bfloat16)
+    got = fused.kl_w_update(x, w, h, lam, tiles=(bm, bn, 4, 2),
+                            interpret=True)
+    assert got.shape == (m, k)
+    np.testing.assert_allclose(np.asarray(got), _np_kl_w(*_f64(x, w, h), lam),
                                rtol=3e-4, atol=3e-5)
 
 
-@pytest.mark.parametrize("dist", ["eu", "kl"])
-@pytest.mark.parametrize("shape", TWO_PASS_SHAPES[:6],
-                         ids=[f"{m}x{n}x{k}"
-                              for m, n, k, _, _ in TWO_PASS_SHAPES[:6]])
+@pytest.mark.parametrize("dist", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES[:6], ids=IDS[:6])
 def test_h_update_fuzz(shape, dist):
-    from tpunmf.ops.mur_fused import mur_h_update
-
     m, n, k, bm, bn = shape
     lam = 0.05
     x, w, h = _problem(m + n * 31 + k, m, n, k)
-    h_new, aux = mur_h_update(x, w, h, distance_type=dist, lam=lam,
-                              bm=bm, bn=bn, interpret=True)
-    if dist == "eu":
-        want = h * (w.T @ x) / ((w.T @ w) @ h + lam * h + EPS)
-        np.testing.assert_allclose(np.asarray(aux), np.asarray(w.T @ x),
-                                   rtol=3e-4, atol=3e-5)
-    else:
-        r = x / (w @ h + EPS)
-        c = h * (w.T @ r)
-        d = jnp.sum(w, axis=0)[:, None]
-        want = 2.0 * c / (d + jnp.sqrt(d * d + 4.0 * lam * c))
-    np.testing.assert_allclose(np.asarray(h_new), np.asarray(want),
+    if dist == "bf16":
+        x = x.astype(jnp.bfloat16)
+    got = fused.kl_h_update(x, w, h, lam, tiles=(bm, bn, 4, 2),
+                            interpret=True)
+    assert got.shape == (k, n)
+    np.testing.assert_allclose(np.asarray(got), _np_kl_h(*_f64(x, w, h), lam),
                                rtol=3e-4, atol=3e-5)
 
 
-# (m, n, k, bm): full-m strip, multi-strip, bf16-legal strips
-ITER_EU_SHAPES = [
-    (32, 128, 8, 32),     # single strip
-    (64, 128, 8, 16),     # 4 strips
-    (96, 256, 16, 32),    # 3 strips
-    (128, 384, 12, 64),   # k % 8 != 0
-    (48, 128, 24, 16),
-    (256, 128, 8, 128),   # the hardware bm=128 layout
+@pytest.mark.parametrize("dist", ["eu", "kl"])
+@pytest.mark.parametrize("shape", KERNEL_SHAPES, ids=IDS)
+def test_objective_fuzz(shape, dist):
+    """Objective kernels: per-program partial sums over ragged tiles."""
+    m, n, k, bm, bn = shape
+    x, w, h = _problem(m * 7 + n + k, m, n, k, zeros=dist == "kl")
+    tiles = (bm, bn, 4, 2)
+    xn, wn, hn = _f64(x, w, h)
+    if dist == "kl":
+        got = fused.kl_obj(x, w, h, use_pallas=True, tiles=tiles,
+                           interpret=True)
+        want = _np_kl_obj(xn, wn, hn)
+    else:
+        got = fused.eu_residual_obj(x, w, h, use_pallas=True, tiles=tiles,
+                                    interpret=True)
+        want = 0.5 * np.sum((xn - wn @ hn) ** 2)
+    np.testing.assert_allclose(float(got), want, rtol=1e-4)
+
+
+@pytest.mark.parametrize("shape", KERNEL_SHAPES[:5], ids=IDS[:5])
+def test_w_update_lagged_obj_fuzz(shape):
+    m, n, k, bm, bn = shape
+    x, w, h = _problem(m + n + k * 13, m, n, k, zeros=True)
+    w1, obj = fused.kl_w_update(x, w, h, 0.2, with_obj=True,
+                                tiles=(bm, bn, 4, 2), interpret=True)
+    xn, wn, hn = _f64(x, w, h)
+    np.testing.assert_allclose(np.asarray(w1), _np_kl_w(xn, wn, hn, 0.2),
+                               rtol=3e-4, atol=3e-5)
+    np.testing.assert_allclose(float(obj), _np_kl_obj(xn, wn, hn),
+                               rtol=1e-4)
+
+
+# ------------------------------------------- the XLA steps, vs NumPy
+
+# (m, n, k): full-m strip, multi-strip, k % 8 != 0
+STEP_SHAPES = [
+    (32, 128, 8),
+    (64, 128, 8),
+    (96, 256, 16),
+    (128, 384, 12),
+    (48, 128, 24),
+    (256, 128, 8),
 ]
 
 
-@pytest.mark.parametrize("xdtype", ["f32", "bf16"])
-@pytest.mark.parametrize("shape", ITER_EU_SHAPES,
-                         ids=[f"{m}x{n}x{k}bm{bm}"
-                              for m, n, k, bm in ITER_EU_SHAPES])
-def test_single_pass_iter_eu_fuzz(shape, xdtype):
-    """The single-pass EU iteration kernel incl. the bf16 pre-cast-H^T
-    path (round-3 hardware fix) across strip layouts."""
-    from tpunmf.ops.mur_fused import mur_iteration_eu
+def _one_mur_iteration(x, w, h, dist, lam=0.0):
+    from tpunmf.solvers import mur
 
-    m, n, k, bm = shape
+    return mur(x, w.shape[1], distance_type=dist, min_iter=1, max_iter=1,
+               tol1=0.0, tol2=0.0, lambda_w=lam, lambda_h=lam,
+               w_init=w, h_init=h, use_pallas=False)
+
+
+@pytest.mark.parametrize("xdtype", ["f32", "bf16"])
+@pytest.mark.parametrize("shape", STEP_SHAPES,
+                         ids=[f"{m}x{n}x{k}" for m, n, k in STEP_SHAPES])
+def test_step_eu_fuzz(shape, xdtype):
+    """One EU-MUR iteration of the XLA step (Gram-trick denominators),
+    incl. bf16 X with f32 factors, vs the NumPy update formulas."""
+    m, n, k = shape
     lam = 0.1
     x, w, h = _problem(m * 7 + n + k, m, n, k)
     if xdtype == "bf16":
         x = x.astype(jnp.bfloat16)
-    w1, wtx, gw = mur_iteration_eu(x, w, h, lam_w=lam, bm=bm, interpret=True)
-    xf = np.asarray(x.astype(jnp.float32))
-    # mirror the kernel's compute dtypes: numerator GEMM consumes the
-    # x-dtype H^T copy
-    ht = np.asarray(h.T.astype(x.dtype).astype(jnp.float32))
-    w_ref = np.asarray(w) * (xf @ ht) / (
-        np.asarray(w @ (h @ h.T)) + lam * np.asarray(w) + EPS)
-    tol = dict(rtol=2e-2, atol=2e-3) if xdtype == "bf16" else \
-        dict(rtol=3e-5, atol=3e-6)
-    np.testing.assert_allclose(np.asarray(w1), w_ref, **tol)
-    # wtx accumulates across strips in f32; its GEMM consumes the
-    # x-dtype cast of w_new
-    wtx_ref = w_ref.astype(np.asarray(x).dtype).astype(np.float32).T @ xf
-    np.testing.assert_allclose(np.asarray(wtx), wtx_ref, **tol)
-    np.testing.assert_allclose(np.asarray(gw), w_ref.T @ w_ref, **tol)
+    res = _one_mur_iteration(x, w, h, "eu", lam)
+    xn, wn, hn = _f64(x, w, h)
+    w1 = wn * (xn @ hn.T) / (wn @ (hn @ hn.T) + lam * wn + EPS)
+    h1 = hn * (w1.T @ xn) / ((w1.T @ w1) @ hn + lam * hn + EPS)
+    np.testing.assert_allclose(res.w, w1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(res.h, h1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(res.obj_history[-1],
+                               0.5 * np.sum((xn - w1 @ h1) ** 2), rtol=1e-4)
 
 
-ITER_KL_SHAPES = [
-    (32, 128, 8, 32, None),
-    (64, 256, 8, 16, None),
-    (64, 256, 8, 16, 128),    # column-subblocked
-    (96, 384, 16, 32, 128),
-    (48, 128, 12, 16, None),  # k % 8 != 0
-]
-
-
-@pytest.mark.parametrize("shape", ITER_KL_SHAPES,
-                         ids=[f"{m}x{n}x{k}bm{bm}bs{bs}"
-                              for m, n, k, bm, bs in ITER_KL_SHAPES])
-def test_single_pass_iter_kl_fuzz(shape):
-    from tpunmf.ops.mur_fused import mur_iteration_kl
-
-    m, n, k, bm, bs = shape
+@pytest.mark.parametrize("shape", STEP_SHAPES[:5],
+                         ids=[f"{m}x{n}x{k}" for m, n, k in STEP_SHAPES[:5]])
+def test_step_kl_fuzz(shape):
+    """One KL-MUR iteration of the XLA step (ratio carried between
+    passes) vs the NumPy closed forms, with exact zeros in X."""
+    m, n, k = shape
     lam = 0.2
     x, w, h = _problem(m + n + k * 13, m, n, k, zeros=True)
-    w1, wtr, obj = mur_iteration_kl(x, w, h, lam_w=lam, bm=bm, bs=bs,
-                                    interpret=True)
-    xn, wn, hn = map(np.asarray, (x, w, h))
-    wh = wn @ hn
-    a = wn * ((xn / (wh + EPS)) @ hn.T)
-    b = np.sum(hn, axis=1)[None, :]
-    w_ref = 2.0 * a / (b + np.sqrt(b * b + 4.0 * lam * a))
-    np.testing.assert_allclose(np.asarray(w1), w_ref, rtol=3e-4, atol=3e-5)
-    wtr_ref = w_ref.T @ (xn / (w_ref @ hn + EPS))
-    np.testing.assert_allclose(np.asarray(wtr), wtr_ref, rtol=3e-4, atol=3e-5)
-    with np.errstate(divide="ignore", invalid="ignore"):
-        val = xn * np.log(xn / wh)
-    val[~np.isfinite(val)] = 0.0
-    obj_ref = np.sum(val - xn + wh)
-    np.testing.assert_allclose(float(obj), obj_ref, rtol=1e-3, atol=1e-3)
+    res = _one_mur_iteration(x, w, h, "kl", lam)
+    xn, wn, hn = _f64(x, w, h)
+    w1 = _np_kl_w(xn, wn, hn, lam)
+    h1 = _np_kl_h(xn, w1, hn, lam)
+    np.testing.assert_allclose(res.w, w1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(res.h, h1, rtol=2e-4, atol=2e-5)
+    np.testing.assert_allclose(res.obj_history[-1], _np_kl_obj(xn, w1, h1),
+                               rtol=1e-4)
 
 
 MASKED_SHAPES = [
-    (8, 128, 4, 8, 128),
-    (32, 256, 8, 16, 128),
-    (24, 384, 12, 8, 128),
-    (64, 128, 16, 32, 128),
+    (8, 128, 4),
+    (32, 256, 8),
+    (24, 384, 12),
+    (64, 128, 16),
 ]
 
 
-@pytest.mark.parametrize("mask_dtype", ["f32", "int8"])
+@pytest.mark.parametrize("mask_kind", ["binary", "weights"])
 @pytest.mark.parametrize("dist", ["eu", "kl"])
 @pytest.mark.parametrize("shape", MASKED_SHAPES,
-                         ids=[f"{m}x{n}x{k}" for m, n, k, _, _ in MASKED_SHAPES])
-def test_masked_updates_fuzz(shape, dist, mask_dtype):
-    """Masked W/H kernels with binary masks riding as int8 (the
-    round-3 DMA-bytes fix) and real-valued f32 weight masks."""
-    from tpunmf.ops.masked_fused import masked_h_update, masked_w_update
+                         ids=[f"{m}x{n}x{k}" for m, n, k in MASKED_SHAPES])
+def test_masked_updates_fuzz(shape, dist, mask_kind):
+    """One masked-MUR iteration (the XLA step) with binary masks and
+    real-valued weight masks, cold row included, vs NumPy."""
+    from tpunmf.solvers import mur_masked
 
-    m, n, k, bm, bn = shape
+    m, n, k = shape
     lam = 0.05
     rng = np.random.default_rng(m * 31 + n + k)
     x, w, h = _problem(m + n + k, m, n, k)
-    mask_np = (rng.random((m, n)) < 0.6).astype(np.float32)
-    mask_np[min(3, m - 1), :] = 0.0  # cold row
-    if mask_dtype == "f32" and dist == "eu":
-        mask_np *= (0.5 + rng.random((m, n))).astype(np.float32)  # weights
-    mask = jnp.asarray(mask_np.astype(
-        np.int8 if mask_dtype == "int8" else np.float32))
-    mf = jnp.asarray(mask_np if mask_dtype == "f32"
-                     else mask_np.astype(np.int8).astype(np.float32))
-
-    got_w = masked_w_update(x, mask, w, h, distance_type=dist, lam=lam,
-                            bm=bm, bn=bn, interpret=True)
+    mask = (rng.random((m, n)) < 0.6).astype(np.float32)
+    mask[min(3, m - 1), :] = 0.0  # cold row
+    if mask_kind == "weights":
+        mask *= (0.5 + rng.random((m, n))).astype(np.float32)
+    res = mur_masked(x, mask, k, distance_type=dist, min_iter=1, max_iter=1,
+                     tol1=0.0, tol2=0.0, lambda_w=lam, lambda_h=lam,
+                     w_init=w, h_init=h)
+    xn, wn, hn = _f64(x, w, h)
+    mf = mask.astype(np.float64)
     if dist == "eu":
-        want_w = w * ((mf * x) @ h.T) / ((mf * (w @ h)) @ h.T + lam * w + EPS)
+        w1 = wn * ((mf * xn) @ hn.T) / ((mf * (wn @ hn)) @ hn.T + lam * wn + EPS)
+        h1 = hn * (w1.T @ (mf * xn)) / (w1.T @ (mf * (w1 @ hn)) + lam * hn + EPS)
     else:
-        r = mf * x / (w @ h + EPS)
-        a = w * (r @ h.T)
-        b = mf @ h.T
-        den = b + jnp.sqrt(b * b + 4.0 * lam * a)
-        want_w = jnp.where(den > 0, 2.0 * a / jnp.where(den > 0, den, 1.0), w)
-    np.testing.assert_allclose(np.asarray(got_w), np.asarray(want_w),
-                               rtol=3e-4, atol=3e-5)
-
-    got_h = masked_h_update(x, mask, got_w, h, distance_type=dist, lam=lam,
-                            bm=bm, bn=bn, interpret=True)
-    wn = got_w
-    if dist == "eu":
-        want_h = h * (wn.T @ (mf * x)) / (
-            wn.T @ (mf * (wn @ h)) + lam * h + EPS)
-    else:
-        r = mf * x / (wn @ h + EPS)
-        c = h * (wn.T @ r)
-        d = wn.T @ mf
-        den = d + jnp.sqrt(d * d + 4.0 * lam * c)
-        want_h = jnp.where(den > 0, 2.0 * c / jnp.where(den > 0, den, 1.0), h)
-    np.testing.assert_allclose(np.asarray(got_h), np.asarray(want_h),
-                               rtol=3e-4, atol=3e-5)
+        a = wn * ((mf * xn / (wn @ hn + EPS)) @ hn.T)
+        b = mf @ hn.T
+        den = b + np.sqrt(b * b + 4.0 * lam * a)
+        w1 = np.where(den > 0, 2.0 * a / np.where(den > 0, den, 1.0), wn)
+        c = hn * (w1.T @ (mf * xn / (w1 @ hn + EPS)))
+        d = w1.T @ mf
+        den = d + np.sqrt(d * d + 4.0 * lam * c)
+        h1 = np.where(den > 0, 2.0 * c / np.where(den > 0, den, 1.0), hn)
+    np.testing.assert_allclose(res.w, w1, rtol=3e-4, atol=3e-5)
+    np.testing.assert_allclose(res.h, h1, rtol=3e-4, atol=3e-5)
 
 
-HALS_SHAPES = [
-    (32, 128, 8, 32),
-    (64, 256, 8, 16),
-    (96, 128, 16, 32),
-    (64, 384, 24, 16),
-]
+def _np_hals_sweep(v, cross, gram, lam):
+    """Gauss-Seidel rank-1 sweep over the columns of v (NumPy oracle)."""
+    v = v.copy()
+    for l in range(v.shape[1]):
+        numer = cross[:, l] - v @ gram[:, l] + v[:, l] * gram[l, l]
+        v[:, l] = np.maximum(numer / (gram[l, l] + lam + 1e-16), 0.0)
+    return v
+
+
+HALS_SHAPES = [(32, 128, 8), (64, 256, 8), (96, 128, 16), (64, 384, 24)]
 
 
 @pytest.mark.parametrize("nsweeps", [1, 2])
 @pytest.mark.parametrize("shape", HALS_SHAPES,
-                         ids=[f"{m}x{n}x{k}" for m, n, k, _ in HALS_SHAPES])
-def test_hals_single_pass_fuzz(shape, nsweeps):
-    from tpunmf.ops.hals_sweep import hals_iteration_eu
+                         ids=[f"{m}x{n}x{k}" for m, n, k in HALS_SHAPES])
+def test_hals_sweep_w_fuzz(shape, nsweeps):
     from tpunmf.solvers.hals import _hals_sweep_w
 
-    m, n, k, bm = shape
+    m, n, k = shape
     lam = 0.05
     x, w, h = _problem(m * 3 + n + k, m, n, k)
-    xht = (x @ h.T).astype(jnp.float32)
-    hht = (h @ h.T).astype(jnp.float32)
-    want_w = w
+    xht, hht = x @ h.T, h @ h.T
+    got = w
     for _ in range(nsweeps):
-        want_w = _hals_sweep_w(want_w, xht, hht, lam)
-    got_w, got_wtx, got_gw = hals_iteration_eu(
-        x, w, h, lam_w=lam, nsweeps=nsweeps, bm=bm, interpret=True)
-    np.testing.assert_allclose(np.asarray(got_w), np.asarray(want_w),
-                               rtol=3e-4, atol=3e-4)
-    np.testing.assert_allclose(np.asarray(got_wtx),
-                               np.asarray(want_w.T @ x), rtol=3e-4, atol=3e-4)
-    np.testing.assert_allclose(np.asarray(got_gw),
-                               np.asarray(want_w.T @ want_w),
-                               rtol=3e-4, atol=3e-4)
+        got = _hals_sweep_w(got, xht, hht, lam)
+    want = np.asarray(w, np.float64)
+    for _ in range(nsweeps):
+        want = _np_hals_sweep(want, *_f64(xht, hht), lam)
+    np.testing.assert_allclose(np.asarray(got), want, rtol=3e-4, atol=3e-4)
 
 
-GS_SHAPES = [(16, 8, 16), (32, 8, 8), (64, 16, 32), (48, 24, 16)]
+GS_SHAPES = [(16, 8), (32, 8), (64, 16), (48, 24)]
 
 
-@pytest.mark.parametrize("unrolled", [True, False])
+@pytest.mark.parametrize("unroll", [1, 8])
 @pytest.mark.parametrize("shape", GS_SHAPES,
-                         ids=[f"n{n}k{k}bm{bm}" for n, k, bm in GS_SHAPES])
-def test_gs_sweep_fuzz(shape, unrolled):
-    from tpunmf.ops.hals_sweep import gs_sweep
+                         ids=[f"n{n}k{k}" for n, k in GS_SHAPES])
+def test_hals_sweep_h_fuzz(shape, unroll):
     from tpunmf.solvers.hals import _hals_sweep_h
 
-    n, k, bm = shape
+    n, k = shape
     m = 40
     x, w, h = _problem(n * 5 + k, m, n, k)
-    wtx = (w.T @ x).astype(jnp.float32)
-    wtw = (w.T @ w).astype(jnp.float32)
-    want = _hals_sweep_h(h, wtx, wtw, 0.1)
-    got = gs_sweep(wtx, wtw, h, lam=0.1, nsweeps=1, bm=bm,
-                   interpret=True, unrolled=unrolled)
-    np.testing.assert_allclose(np.asarray(got), np.asarray(want),
-                               rtol=2e-4, atol=2e-4)
+    wtx, wtw = w.T @ x, w.T @ w
+    got = _hals_sweep_h(h, wtx, wtw, 0.1, unroll=unroll)
+    wtx_n, wtw_n = _f64(wtx, wtw)
+    want = _np_hals_sweep(np.asarray(h, np.float64).T, wtx_n.T, wtw_n, 0.1).T
+    np.testing.assert_allclose(np.asarray(got), want, rtol=2e-4, atol=2e-4)
 
 
 def test_fuzz_combo_count():
-    """The tier sweeps >= 50 distinct shape combinations (VERDICT r3)."""
-    count = (len(TWO_PASS_SHAPES) * 2 * 2      # w_update: dist x lam
-             + 6 * 2                           # h_update: dist
-             + len(ITER_EU_SHAPES) * 2         # dtype
-             + len(ITER_KL_SHAPES)
-             + len(MASKED_SHAPES) * 2 * 2      # dist x mask dtype
+    """The tier sweeps >= 50 distinct shape combinations."""
+    count = (len(KERNEL_SHAPES) * 2 * 2        # W pass: dtype x lam
+             + 6 * 2                           # H pass: dtype
+             + len(KERNEL_SHAPES) * 2          # objectives
+             + 5                               # lagged W pass
+             + len(STEP_SHAPES) * 2 + 5        # XLA EU / KL steps
+             + len(MASKED_SHAPES) * 2 * 2      # dist x mask kind
              + len(HALS_SHAPES) * 2            # nsweeps
-             + len(GS_SHAPES) * 2)             # unrolled
+             + len(GS_SHAPES) * 2)             # unroll
     assert count >= 50, count
 
 
-# (b, n, dtype): single-tile, exact-multiple, ragged tails just above
-# and below tile boundaries, odd batches, bf16 — the blockmax+relayout
-# kernel behind the serving exact top-k (ops/topk_select.py)
+# (b, n, dtype): exact multiples of the 128-wide block, ragged tails just
+# above and below, odd batches, bf16 — the block-max producer behind the
+# serving exact top-k (serve/topk.py)
 BLOCKMAX_SHAPES = [
-    (1, 16384, "f32"),       # exactly one (128*128) tile, b=1
-    (4, 16383, "f32"),       # one short of a tile
-    (4, 16385, "f32"),       # one past a tile
-    (3, 32768, "f32"),       # 2 exact tiles, odd batch
-    (7, 50000, "f32"),       # ragged mid-tile tail
-    (8, 131072, "bf16"),     # 8 exact tiles bf16
-    (5, 99999, "bf16"),      # ragged bf16
+    (1, 16384, "f32"),
+    (4, 16383, "f32"),
+    (4, 16385, "f32"),
+    (3, 32768, "f32"),
+    (7, 50000, "f32"),
+    (8, 131072, "bf16"),
+    (5, 99999, "bf16"),
 ]
 
 
 @pytest.mark.parametrize("shape", BLOCKMAX_SHAPES,
                          ids=[f"{b}x{n}-{d}" for b, n, d in BLOCKMAX_SHAPES])
 def test_blockmax_relayout_fuzz(shape):
-    from tpunmf.ops.topk_select import (blockmax_relayout,
-                                        blockmax_relayout_jnp)
+    from tpunmf.serve.topk import _exact_topk, blockmax_relayout
 
     b, n, d = shape
     dtype = jnp.bfloat16 if d == "bf16" else jnp.float32
     rng = np.random.default_rng(b * 100000 + n)
     s = jnp.asarray(rng.standard_normal((b, n)).astype(np.float32)).astype(dtype)
-    bm_k, s3_k = blockmax_relayout(s, interpret=True)
-    bm_j, s3_j = blockmax_relayout_jnp(s)
-    np.testing.assert_array_equal(np.asarray(bm_k, np.float32),
-                                  np.asarray(bm_j, np.float32))
-    np.testing.assert_array_equal(np.asarray(s3_k, np.float32),
-                                  np.asarray(s3_j, np.float32))
+    bmax, s3 = blockmax_relayout(s)
+    sn = np.asarray(s, np.float32)
+    nb = -(-n // 128)
+    assert s3.shape == (b, nb, 128) and bmax.shape == (b, nb)
+    lo = float(jnp.finfo(dtype).min)
     # tail fill is finfo.min, never -inf (0 * -inf NaN-poisons consumers)
-    pad = s3_k.shape[1] * s3_k.shape[2] - n
-    if pad:
-        tail = np.asarray(s3_k, np.float32).reshape(b, -1)[:, n:]
-        assert np.all(tail == float(jnp.finfo(dtype).min))
+    padded = np.concatenate([sn, np.full((b, nb * 128 - n), lo, np.float32)],
+                            axis=1).reshape(b, nb, 128)
+    np.testing.assert_array_equal(np.asarray(s3, np.float32), padded)
+    np.testing.assert_array_equal(np.asarray(bmax, np.float32),
+                                  padded.max(axis=-1))
+    k = 10
+    v, i = _exact_topk(s, k, block=128)
+    v_ref, i_ref = jax.lax.top_k(s, k)
+    np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))

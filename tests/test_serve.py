@@ -100,7 +100,7 @@ def test_approximate_retrieval(rng):
     v_ap, i_ap = topk_retrieval(mesh, jnp.asarray(w), hs, k,
                                 recall_target=0.95)
     rec = recall_at_k(np.asarray(i_ap), np.asarray(i_ex))
-    assert rec >= 0.95  # exact on CPU fallback; >= target on TPU
+    assert rec >= 0.95  # exact on the CPU; >= target on an accelerator
     # single-device approximate path
     v1, i1 = topk_retrieval(None, jnp.asarray(w), jnp.asarray(h), k,
                             recall_target=0.9)
@@ -362,26 +362,28 @@ def test_exact_topk_exclusion_neg_inf(rng):
     np.testing.assert_array_equal(np.asarray(v), np.asarray(v_ref))
 
 
-def test_blockmax_relayout_kernel_matches_jnp(rng):
-    """The Pallas block-max+relayout kernel (interpret mode) must equal
-    the pure-XLA producer bit-for-bit: block maxima, the (b, nb,
-    sel_block) relayout, and the finfo.min ragged-tail fill — for exact
-    multiples, ragged tails, single-tile inputs, and bf16."""
+def test_blockmax_relayout_matches_numpy(rng):
+    """Block maxima and the (b, nb, sel_block) view equal a NumPy
+    reshape of the finfo.min-padded scores — exact multiples, ragged
+    tails, single blocks, and bf16."""
     import jax.numpy as jnp
-    from tpunmf.ops.topk_select import blockmax_relayout, blockmax_relayout_jnp
+    from tpunmf.serve.topk import blockmax_relayout
 
-    for b, n, dtype in [(4, 16384, np.float32),      # exactly one tile
-                        (4, 40000, np.float32),      # ragged tail
-                        (3, 16384 * 2, np.float32),  # odd batch, 2 tiles
-                        (8, 20000, jnp.bfloat16)]:   # bf16 tiling rules
+    for b, n, dtype in [(4, 16384, np.float32),
+                        (4, 40000, np.float32),
+                        (3, 128, np.float32),
+                        (8, 20000, jnp.bfloat16)]:
         s = jnp.asarray(rng.standard_normal((b, n)).astype(np.float32)).astype(dtype)
-        bm_k, s3_k = blockmax_relayout(s, interpret=True)
-        bm_j, s3_j = blockmax_relayout_jnp(s)
-        np.testing.assert_array_equal(np.asarray(bm_k, np.float32),
-                                      np.asarray(bm_j, np.float32))
-        np.testing.assert_array_equal(np.asarray(s3_k, np.float32),
-                                      np.asarray(s3_j, np.float32))
-        assert s3_k.shape[1] % 128 == 0 and s3_k.shape[2] == 128
+        bm, s3 = blockmax_relayout(s)
+        nb = -(-n // 128)
+        sn = np.asarray(s, np.float32)
+        lo = float(jnp.finfo(dtype).min)
+        ref = np.concatenate([sn, np.full((b, nb * 128 - n), lo, np.float32)],
+                             axis=1).reshape(b, nb, 128)
+        np.testing.assert_array_equal(np.asarray(s3, np.float32), ref)
+        np.testing.assert_array_equal(np.asarray(bm, np.float32),
+                                      ref.max(axis=-1))
+        assert s3.dtype == s.dtype
 
 
 def test_wide_topk_two_level_matches_lax(rng):
@@ -416,12 +418,12 @@ def test_exact_topk_core_without_scores(rng):
     force it, and the result still equals lax.top_k on the original
     (ragged) width."""
     import jax.numpy as jnp
-    from tpunmf.ops.topk_select import blockmax_relayout_jnp
+    from tpunmf.serve.topk import blockmax_relayout
     from tpunmf.serve.topk import _exact_topk_core
 
     b, n, k = 3, 40000, 9               # ragged: nbp*128 > n
     s = jnp.ones((b, n), jnp.float32) * 0.25
-    bm, s3 = blockmax_relayout_jnp(s)
+    bm, s3 = blockmax_relayout(s)
     v_ref, i_ref = jax.lax.top_k(s, k)
     v, i = _exact_topk_core(bm, s3, n, k)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))
@@ -429,35 +431,30 @@ def test_exact_topk_core_without_scores(rng):
 
     # and the fast path through the core (no ties): same equality
     s = jnp.asarray(rng.standard_normal((b, n)).astype(np.float32))
-    bm, s3 = blockmax_relayout_jnp(s)
+    bm, s3 = blockmax_relayout(s)
     v_ref, i_ref = jax.lax.top_k(s, k)
     v, i = _exact_topk_core(bm, s3, n, k)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))
 
 
-def test_score_blockmax_relayout_kernel_matches_jnp(rng):
-    """Fused scoring+blockmax kernel (interpret mode) vs the pure-XLA
-    producer: f32 accumulation/output regardless of input dtype, ragged
-    tails, multi-row-tile batches."""
+def test_scored_topk_matches_lax_at_any_dtype(rng):
+    """Scoring + exact top-k: f32 accumulation and output regardless of
+    input dtype, ragged tails, multi-block batches — equal to lax.top_k
+    over the same f32-accumulated scores."""
     import jax.numpy as jnp
-    from tpunmf.ops.topk_select import (
-        score_blockmax_fits, score_blockmax_relayout,
-        score_blockmax_relayout_jnp)
+    from tpunmf.serve.topk import _scored_topk
 
-    for b, r, n, dt in [(8, 128, 16384, jnp.float32),
-                        (8, 128, 40000, jnp.float32),   # ragged tail
-                        (8, 64, 16384, jnp.bfloat16),   # quantized stage
-                        (96, 128, 16384, jnp.float32)]: # 2 row tiles
+    for b, r, n, dt in [(8, 128, 40000, jnp.float32),
+                        (8, 64, 40000, jnp.bfloat16),
+                        (96, 32, 50000, jnp.float32)]:
         w = jnp.asarray(rng.random((b, r)).astype(np.float32)).astype(dt)
         h = jnp.asarray(rng.random((r, n)).astype(np.float32)).astype(dt)
-        bm_k, s3_k = score_blockmax_relayout(w, h, interpret=True)
-        bm_j, s3_j = score_blockmax_relayout_jnp(w, h)
-        assert bm_k.dtype == jnp.float32 and s3_k.dtype == jnp.float32
-        np.testing.assert_allclose(np.asarray(bm_k), np.asarray(bm_j),
-                                   rtol=2e-5, atol=2e-5)
-        np.testing.assert_allclose(np.asarray(s3_k), np.asarray(s3_j),
-                                   rtol=2e-5, atol=2e-5)
-        assert score_blockmax_fits(b, r, jnp.dtype(dt).itemsize)
+        v, i = _scored_topk(w, h, 25, block=128)
+        scores = jnp.matmul(w, h, preferred_element_type=jnp.float32)
+        v_ref, i_ref = jax.lax.top_k(scores, 25)
+        assert v.dtype == jnp.float32
+        np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))
+        np.testing.assert_array_equal(np.asarray(v), np.asarray(v_ref))
 
 
 def test_quantized_stage_scores_are_f32_accumulated(rng):
@@ -523,7 +520,7 @@ def test_exact_topk_nan_rows_fall_back(rng):
     match lax.top_k's NaN-first semantics bit for bit — through both
     _exact_topk and the relayout-core path the fused kernel uses."""
     import jax.numpy as jnp
-    from tpunmf.ops.topk_select import blockmax_relayout_jnp
+    from tpunmf.serve.topk import blockmax_relayout
     from tpunmf.serve.topk import _exact_topk, _exact_topk_core
 
     b, n, k, block = 3, 40000, 7, 128
@@ -535,7 +532,7 @@ def test_exact_topk_nan_rows_fall_back(rng):
     v_ref, i_ref = jax.lax.top_k(s, k)
     v, i = _exact_topk(s, k, block=block)
     np.testing.assert_array_equal(np.asarray(i), np.asarray(i_ref))
-    bm, s3 = blockmax_relayout_jnp(s)
+    bm, s3 = blockmax_relayout(s)
     # the NaN must have propagated into the block maxima
     assert bool(jnp.any(jnp.isnan(bm)))
     v2, i2 = _exact_topk_core(bm, s3, n, k, block=block)

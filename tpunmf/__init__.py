@@ -1,4 +1,4 @@
-"""tpunmf — a TPU-native non-negative matrix factorization engine.
+"""tpunmf — a non-negative matrix factorization engine on JAX.
 
 Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
 package (raleng/nmf): MUR, ANLS (batched active-set / BPP NNLS), ADMM and

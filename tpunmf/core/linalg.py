@@ -5,10 +5,9 @@ methods:
   'chol' — Cholesky + triangular solves: exact, the CPU/parity default
            (matches the reference's LAPACK path bit-for-bit-ish).
   'cg'   — Jacobi-preconditioned CG where each iteration's matvec is one
-           dense (k, k) @ (k, p) GEMM.  On TPU backends triangular-solve
-           lowering is sequential and slow (same pathology as batched
-           small Cholesky, docs/PERF.md), while the CG iterations are
-           MXU-shaped; with iters = k + 8 the solution matches 'chol' to
+           dense (k, k) @ (k, p) GEMM, where a triangular solve is a
+           sequential dependency chain; with iters = k + 8 the solution
+           matches 'chol' to
            solver precision (CG is exact after k steps in exact
            arithmetic).
 """

@@ -8,7 +8,7 @@ are zeroed (x == 0 -> 0 * -inf), and only then is the linear correction
 ``- x + wh`` summed in.  This means cells where the log term was masked
 still contribute ``wh - x`` to the objective.
 
-TPU-first notes: both objectives are also available in forms that avoid
+Design notes: both objectives are also available in forms that avoid
 materializing ``w @ h`` (see ``eu_objective_gram`` and the fused Pallas
 kernels in :mod:`tpunmf.ops`).
 """

@@ -1,6 +1,6 @@
 """Sparse-matrix panel streaming: blocked CSR -> dense tiles.
 
-TPUs have no efficient gather-heavy SpMM; the plan for the 100M-nonzero
+The in-memory solvers take dense X; the plan for the 100M-nonzero
 configs (SURVEY §7.9) is blocked densification — column panels of V are
 densified on the host (native C++ panelizer, multithreaded; scipy
 fallback) and staged to the device, where they ride the ring/psum
@@ -85,7 +85,7 @@ class PanelStream:
     def panel_bf16(self, i: int, j: int) -> np.ndarray:
         """Densify tile (i, j) directly to bfloat16 (RNE).
 
-        The transfer-compression path for tunnel/DCN-bound streaming —
+        The transfer-compression path for transfer-bound streaming —
         halves host->device bytes; device-side accumulation stays f32.
         Native path converts during densification (no extra host pass);
         the fallback densifies f32 then casts once."""

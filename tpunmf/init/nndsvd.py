@@ -1,17 +1,17 @@
-"""NNDSVD initialization (Boutsidis & Gallopoulos), TPU-native.
+"""NNDSVD initialization (Boutsidis & Gallopoulos).
 
 Behavioral contract matches the reference ``nndsvd`` (reference:
 nmf/utils.py:36-93): leading singular triplet taken with absolute values,
 every further component picks the positive- or negative-part pair with the
 larger norm product, and the 'zero' / 'mean' / 'random' fill variants.
 
-Design differences (TPU-first, not a translation):
+Design differences (a redesign, not a translation):
   * the per-component Python loop (nmf/utils.py:60-82) is fully vectorized
     over the rank axis — one batched positive/negative-part split, one
     batched norm computation, one ``where`` select;
   * the SVD can come from ``jnp.linalg.svd`` (exact, small/medium matrices)
     or from a sharded randomized range-finder SVD for matrices that do not
-    fit one chip (see :mod:`tpunmf.init.rsvd`).
+    fit one device (see :mod:`tpunmf.init.rsvd`).
 
 NNDSVD is invariant to the SVD's per-column sign ambiguity: jointly flipping
 (u_i, v_i) swaps the positive and negative parts *and* their norm products,
@@ -76,16 +76,6 @@ def _nndsvd_from_svd(u, s, vt, x_mean, rank, variant, key=None):
     return w, h
 
 
-# 'auto' switches to randomized SVD only beyond this min-dimension.  Kept
-# high on purpose: the randomized range finder changes the init slightly,
-# which shifts solver trajectories — measured as a 5.8% ADMM trajectory
-# deviation at min-dim 5000 vs 5e-15 with the exact SVD (the reference
-# itself is stable to 1-ulp input perturbations there).  Exact SVD is
-# affordable well past this size; rSVD is for the truly huge configs where
-# no reference comparison exists anyway.
-_AUTO_RSVD_THRESHOLD = 16384
-
-
 def nndsvd(x, rank=None, variant: str = "zero", key=None, method: str = "auto",
            oversample: int = 10, power_iters: int = 2):
     """SVD-based NMF initialization.
@@ -96,9 +86,8 @@ def nndsvd(x, rank=None, variant: str = "zero", key=None, method: str = "auto",
       variant: 'zero' | 'mean' | 'random' fill for zero entries.
       key: PRNG key for the 'random' variant and randomized SVD.
       method: 'exact' (jnp.linalg.svd), 'randomized' (range-finder rSVD),
-        or 'auto' — exact up to min-dim 16384 on CPU (parity runs live
-        there) and 2048 on TPU (QDWH-based exact SVD is minutes at
-        MovieLens scale), randomized beyond; exact SVD at recommender
+        or 'auto' — exact up to the backend's ``rsvd_threshold`` min-dim
+        (core/backend.py), randomized beyond; exact SVD at recommender
         scale is the reference's scalability wall (nmf/utils.py:44).
       oversample, power_iters: randomized-SVD parameters.
     """
@@ -107,11 +96,9 @@ def nndsvd(x, rank=None, variant: str = "zero", key=None, method: str = "auto",
         rank = x.shape[1]
 
     if method == "auto":
-        # exact SVD on TPU backends is dramatically slower (QDWH-based,
-        # minutes at MovieLens scale) than the GEMM-only randomized path,
-        # so the TPU threshold is much lower; CPU keeps exact SVD far out
-        # (parity runs live there — see the threshold comment above)
-        threshold = 2048 if jax.default_backend() == "tpu" else _AUTO_RSVD_THRESHOLD
+        from ..core.backend import defaults
+
+        threshold = defaults().rsvd_threshold
         method = "randomized" if min(x.shape) > threshold else "exact"
 
     if method == "randomized":

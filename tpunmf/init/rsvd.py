@@ -2,8 +2,8 @@
 
 The reference initializes with a full LAPACK ``gesdd`` SVD
 (reference: nmf/utils.py:44), which is impossible at recommender scale
-(1M x 100k).  TPU-native replacement: a sharded randomized range finder —
-the only large operations are tall-skinny GEMMs (MXU-friendly, shardable
+(1M x 100k).  Replacement: a sharded randomized range finder — the
+only large operations are tall-skinny GEMMs (shardable
 over the data's column axis with psum reductions under GSPMD), followed by
 QR and an exact SVD of a small (rank+p) matrix.
 """

@@ -1,6 +1,6 @@
 // Blocked-CSR -> dense-tile panelizer (host data path for sparse V).
 //
-// TPUs want dense tiles; recommender-scale V arrives as CSR.  This is the
+// The solvers want dense tiles; recommender-scale V arrives as CSR.  This is the
 // native (C++) host-side feeder that densifies (row_block x col_panel)
 // tiles out of a CSR matrix, multithreaded across rows, so panels can be
 // staged into device HBM while the previous panel computes (the ring

@@ -9,7 +9,7 @@ with shrinking numpy index sets and a data-dependent ``while`` loop
 (reference: nmf/fcnnls.py:55-136); its column-grouping trick (``cssls``,
 nmf/fcnnls.py:14-52) exists to batch LAPACK calls on CPU and its int64
 set-encoding overflows for rank > 62 (nmf/fcnnls.py:28).  None of that maps
-to a TPU, so this is a ground-up re-derivation (the algorithm from the
+to an accelerator, so this is a ground-up re-derivation (the algorithm from the
 paper, not the reference's code — whose inner line search is itself buggy,
 ``alpha.flat[min_idx]`` at nmf/fcnnls.py:105-106 flat-indexes with row
 indices):
@@ -51,8 +51,7 @@ def _masked_solve_block(ct_c, ct_a_t, m):
     """(chunk, l) rhs/masks -> (chunk, l) solutions.
 
     Each masked system is SPD (principal submatrix of an SPD Gram plus
-    identity padding), so batched Cholesky applies — faster than LU and
-    more robust on TPU backends.
+    identity padding), so batched Cholesky applies — faster than LU.
     """
     dtype = ct_a_t.dtype
     pair = m[:, :, None] * m[:, None, :]           # (chunk, l, l)
@@ -113,9 +112,8 @@ def masked_solve_cg(ct_c, ct_a, p_set, *, iters: int = 0, x0=None,
 
     Key identity: the masked matvec for EVERY column at once,
     ``A_j v_j = m_j ⊙ (CtC @ (m_j ⊙ v_j)) + (1-m_j) ⊙ v_j``, is a single
-    dense (l, l) @ (l, p) GEMM plus elementwise masks — MXU-shaped, unlike
-    batched small Cholesky (measured ~6.5 GFLOP/s for (4096, 64, 64)
-    batched factorizations on v5e).  CG over SPD systems is exact after l
+    dense (l, l) @ (l, p) GEMM plus elementwise masks — GEMM-shaped,
+    unlike batched small Cholesky.  CG over SPD systems is exact after l
     steps in exact arithmetic; ``iters`` defaults to l (+8 slack), giving
     agreement with the direct solve to solver precision in f64 and ~1e-5
     in f32.
@@ -124,8 +122,7 @@ def masked_solve_cg(ct_c, ct_a, p_set, *, iters: int = 0, x0=None,
     cost of one extra matvec for the initial residual.  Inside ANLS the
     previous iterate's solution is a near-solution of the new system, so
     the initial residual is small and far fewer steps reach the same
-    accuracy — the measured basis for the reduced TPU ``cg_iters``
-    default (docs/PERF.md round 4).
+    accuracy at a reduced ``cg_iters``.
 
     Same signature/semantics as :func:`masked_solve`.
     """
@@ -198,34 +195,30 @@ def nnls_activeset(ct_c, ct_a, p_set0=None, k0=None, *, max_outer: int = 0,
       k0: optional (l, p) warm-start VALUES (the previous iterate itself;
         requires p_set0).  CG solves start from the masked k0 instead of
         zero — strictly more accurate at the same step count, and the
-        basis for reducing ``cg_iters`` on TPU.  Ignored by 'chol'.
+        basis for reducing ``cg_iters``.  Ignored by 'chol'.
       max_outer: bound on outer optimality iterations (default 5*l + 10).
       inner_cap: shared feasibility-restoration budget, like the reference's
         ``iter_max = 3 * l_var`` (nmf/fcnnls.py:10); default 3*l.
       solve_method: 'chol' (batched Cholesky, exact) or 'cg'
-        (GEMM-shaped CG, see masked_solve_cg — faster on TPU).
+        (GEMM-shaped CG, see masked_solve_cg).
       opt_tol_ulps: CG-path dual optimality slack in units of dtype ulps
         (exact solves use a zero tolerance regardless).
       cg_iters: CG step count per solve (0 = the exact-arithmetic bound
         l + 8).  With k0 warm starts a much smaller count reaches the
-        same objective — see tpu_defaults.anls_cg_iters for the measured
-        TPU default.
+        same objective (per-backend default: core/backend.py).
       precision: matmul precision for the rank-sized internals (duals
-        ``ct_c @ k`` and the CG matvecs) — e.g. 'highest' for 3-pass f32
-        on TPU, where the default 1-pass bf16 GEMM leaves ~1e-2 relative
-        noise on the duals and makes columns cycle on noise (measured:
-        exact-bound CG at 'highest' runs 1.5x FASTER than at 'default'
-        despite 3x the matmul passes, benchmarks/anls_cg_sweep.json).
-        These ops are k-sized — the 3-pass cost is negligible next to
-        the X-sized products, which keep the caller's precision.
+        ``ct_c @ k`` and the CG matvecs) — e.g. 'highest' on a GPU, whose
+        default TF32 products leave ~1e-3 relative noise on the duals and
+        make columns cycle on noise.  These ops are k-sized — the cost
+        is small next to the X-sized products, which keep the caller's
+        precision.
       freeze_stalled: anti-cycling guard — a column whose NNLS objective
         fails to decrease by more than ~64 ulps (relative) across an
         exchange is at its numerical optimum and is retired.  The exact
         active-set method decreases the objective strictly at every
         exchange, so this never fires on the mathematical path; it only
         stops columns cycling on solver-precision noise (which otherwise
-        re-solve until max_outer — measured ~90% of ANLS iteration time
-        on TPU, docs/PERF.md round-2 attribution).
+        re-solve until max_outer).
 
     Returns: (l, p) non-negative minimizer.
     """

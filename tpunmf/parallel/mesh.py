@@ -1,12 +1,12 @@
 """Device-mesh construction and canonical sharding layouts.
 
 The reference is single-process numpy with zero parallelism (SURVEY §2C);
-everything here is new TPU-native capability.  Canonical layout per the
+everything here is new capability.  Canonical layout per the
 north star (BASELINE.json): V and H sharded over the item/column axis, W
 replicated (or row-sharded over a 'rows' data-parallel axis on 2-D
 meshes); the per-iteration partial products ``X @ H^T`` / ``W^T @ X``
 contract over the sharded axis, so XLA inserts psum/reduce-scatter
-collectives over ICI automatically under GSPMD.
+collectives over the device links automatically under GSPMD.
 
 Axes:
   'rows' — data-parallel axis over V's row (user/sample) blocks;

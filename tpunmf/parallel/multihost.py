@@ -1,7 +1,7 @@
 """Multi-host bring-up and host-sharded data ingestion.
 
 The reference is strictly single-process (SURVEY §2C); this is the
-TPU-native multi-host layer per BASELINE config[4] (1M x 100k on N>=2
+multi-host layer per BASELINE config[4] (1M x 100k on N>=2
 hosts): ``jax.distributed`` initialization, a global mesh spanning all
 hosts, and per-host ingestion where each host materializes only its own
 column panel of V before assembling the global sharded array.
@@ -25,8 +25,9 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     Must run before any other JAX call (anything that touches devices —
     even ``jax.process_count()`` — initializes the XLA backend and makes
     distributed bring-up impossible, so no such probe happens here).
-    On Cloud TPU the arguments are auto-detected; pass them explicitly for
-    other fabrics.  Calling twice is tolerated.
+    Where no cluster environment announces them, pass them explicitly
+    (e.g. ``coordinator_address='localhost:<port>'``).  Calling twice is
+    tolerated.
     """
     if coordinator_address is None and num_processes in (None, 1):
         return  # single-process run: nothing to do
@@ -76,7 +77,7 @@ def host_local_column_range(mesh: Mesh, n: int) -> tuple[int, int]:
     """The [start, stop) slice of the item axis this host's devices own.
 
     With H/V column-sharded over 'cols', each host only ever needs its own
-    column panel of the data — the ingestion side of DCN-level sharding.
+    column panel of the data — the ingestion side of cross-host sharding.
     """
     if "cols" not in mesh.axis_names:
         return 0, n

@@ -1,7 +1,7 @@
 """Sharded N-way CP/PARAFAC: mode-0 slab parallelism with psum'd MTTKRPs.
 
-Extends the tensor solver (solvers/ntf.py) across a device mesh the
-TPU-native way (the reference has no tensor path and no parallelism at
+Extends the tensor solver (solvers/ntf.py) across a device mesh (the
+reference has no tensor path and no parallelism at
 all — SURVEY §2C):
 
   * the tensor is sharded along mode 0 (``P(axis, None, ..., None)``) —

@@ -8,7 +8,7 @@ step_eu/step_kl) up to float reassociation — tested on the 8-device CPU
 mesh (tests/test_sharding.py).
 
 The reference has no parallelism of any kind (its loops are sequential
-numpy, e.g. nmf/mur.py:119); these are new TPU-native capability mandated
+numpy, e.g. nmf/mur.py:119); these are new capability mandated
 by BASELINE.json.
 
 Why two layouts (Ulysses):

@@ -10,7 +10,7 @@ nmf/ao_admm_local_sparsity.py:221-321):
   l1inf  : row-wise l1,inf-ball "local sparsity" projection
   l1inf_transpose : column-wise variant
 
-TPU-first redesign:
+Redesign:
   * ``l1inf``'s per-row Python loop with an inner linear scan
     (nmf/admm.py:164-182) becomes a fully vectorized
     sort + cumsum + first-negative-index water-filling — one fused pass,

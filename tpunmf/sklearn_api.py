@@ -4,7 +4,7 @@
 constructor/attribute surface (n_components, fit/fit_transform/
 transform/inverse_transform, components_, reconstruction_err_, n_iter_)
 so sklearn users can switch without rewriting call sites, while the
-computation runs on the TPU-native solvers.
+computation runs on the tpunmf solvers.
 
 sklearn convention: X is (n_samples, n_features) and
 ``X ~ W @ H`` with ``W = fit_transform(X)`` (n_samples, k) and

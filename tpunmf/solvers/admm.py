@@ -6,7 +6,7 @@ updates (nmf/admm.py:216-230), prox steps on W and H, the KL data-term
 split with the closed-form ``v_aux = 0.5*((v_bar-1)+sqrt((v_bar-1)^2+4v))``
 (nmf/admm.py:312-313), dual ascent, defaults and convergence semantics.
 
-TPU-first notes:
+Design notes:
   * the k x k normal-equation solves ``(G + rho*I) X = B`` use an on-device
     Cholesky (SPD by construction) instead of the reference's LAPACK
     ``gesv`` general solve — tiny replicated algebra, while the m*n-sized
@@ -35,7 +35,8 @@ import numpy as np
 from ..core.losses import distance
 from ..core.types import AdmmExperiment, Results
 from ..init import nndsvd, random_init
-from ..ops.fused import eu_residual_obj, kl_ratio_and_obj
+from ..core.backend import defaults, use_kernels
+from ..ops.fused import eu_residual_obj, kl_obj
 from ..prox import prox
 from .common import (  # noqa: F401
     verbose_precision,
@@ -49,8 +50,7 @@ from .common import (  # noqa: F401
 
 
 def _spd_solve(g, rho, b, method="chol"):
-    """Solve (g + rho*I) x = b; g is k x k PSD.  'cg' avoids the slow
-    TPU triangular-solve lowering (core/linalg.spd_solve)."""
+    """Solve (g + rho*I) x = b; g is k x k PSD (core/linalg.spd_solve)."""
     from ..core.linalg import spd_solve
 
     k = g.shape[0]
@@ -60,8 +60,7 @@ def _spd_solve(g, rho, b, method="chol"):
 
 def _objective(v, w, h, distance_type, use_pallas):
     if distance_type == "kl":
-        _, obj = kl_ratio_and_obj(v, w, h, use_pallas=use_pallas)
-        return obj
+        return kl_obj(v, w, h, use_pallas=use_pallas)
     return eu_residual_obj(v, w, h, use_pallas=use_pallas)
 
 
@@ -208,18 +207,12 @@ def admm(
     if rho_mode not in ("fixed", "adaptive"):
         raise ValueError("rho_mode must be 'fixed' or 'adaptive'")
     if spd_solver is None:
-        # CG (GEMM-shaped) avoids the slow TPU triangular-solve lowering;
-        # exact Cholesky stays the CPU/parity default (core/linalg.py,
-        # solvers/tpu_defaults.py)
-        from .tpu_defaults import admm_spd_solver
-
-        spd_solver = admm_spd_solver(jax.default_backend())
+        spd_solver = defaults().spd_solver
     if spd_solver not in ("chol", "cg"):
         raise ValueError("spd_solver must be 'chol' or 'cg'")
 
     v = jnp.asarray(v)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu"
+    use_pallas = use_kernels(v, k, use_pallas)
 
     experiment = AdmmExperiment(
         method="admm",

@@ -7,7 +7,7 @@ defaults, NNDSVD-by-default init, convergence semantics, and the quirk
 that ``distance_type='kl'`` only changes the *reported* objective — the
 updates are always least-squares (nmf/anls.py:108,114-115).
 
-TPU-first redesign:
+Redesign:
   * the augmented stacking is folded into the normal equations —
     ``CtC = H H^T + 2*lambda*I`` and ``CtA = H X^T`` — so no (n+k) x k
     concatenated matrices are ever built;
@@ -31,7 +31,8 @@ from ..core.losses import distance
 from ..core.types import AnlsExperiment, Results
 from ..init import nndsvd, random_init
 from ..nnls import nnls_activeset, nnls_bpp
-from ..ops.fused import eu_residual_obj, kl_ratio_and_obj
+from ..core.backend import defaults, use_kernels
+from ..ops.fused import eu_residual_obj, kl_obj
 from .common import (  # noqa: F401
     verbose_precision,
     host_array,
@@ -108,7 +109,7 @@ def _anls_block(
         h = solve(ct_c, w.T @ x, h)
 
         if distance_type == "kl":
-            _, obj = kl_ratio_and_obj(x, w, h, use_pallas=use_pallas)
+            obj = kl_obj(x, w, h, use_pallas=use_pallas)
         else:
             obj = eu_residual_obj(x, w, h, use_pallas=use_pallas)
         return (w, h), obj
@@ -129,12 +130,9 @@ def _anls_iter(
     nnls_solver: str, solve_method: str, nnls_opts_t: tuple = (),
     use_pallas: bool,
 ):
-    """One ANLS iteration as a standalone jit (host-driven loop).
-
-    Used on TPU backends where embedding the NNLS while_loops inside the
-    solver's own while_loop (3-deep nesting) faults the TPU runtime — see
-    docs/PERF.md.  Each call is nesting depth 2, which is stable.
-    """
+    """One ANLS iteration as a standalone jit (host-driven loop,
+    ``device_loop=False``): each call nests the NNLS while_loops 2 deep
+    instead of 3 inside the solver's own loop."""
     solve = _make_solve(nnls_solver, solve_method, nnls_opts_t)
     eye = jnp.eye(k, dtype=x.dtype)
     ct_c = h @ h.T + 2.0 * lambda_w * eye
@@ -142,7 +140,7 @@ def _anls_iter(
     ct_c = w.T @ w + 2.0 * lambda_h * eye
     h = solve(ct_c, w.T @ x, h)
     if distance_type == "kl":
-        _, obj = kl_ratio_and_obj(x, w, h, use_pallas=use_pallas)
+        obj = kl_obj(x, w, h, use_pallas=use_pallas)
     else:
         obj = eu_residual_obj(x, w, h, use_pallas=use_pallas)
     return w, h, obj
@@ -170,7 +168,7 @@ def anls(
     h_init=None,
     key=None,
     use_pallas: Optional[bool] = None,
-    device_loop: Optional[bool] = None,
+    device_loop: bool = True,
     verbose: bool = False,
     block_size: Optional[int] = None,
     on_block_end=None,
@@ -185,21 +183,18 @@ def anls(
 
     ``nnls_opts`` (activeset only) tunes the inner NNLS throughput/quality
     trade-off: ``max_outer`` (default 5k+10, exact), ``inner_cap``,
-    ``opt_tol_ulps`` (CG dual tolerance; default 100).  Measured on v5e
-    at 4096x2048 rank 64: exact defaults 7.4 it/s; a handful of
-    degenerate columns cycle on CG-noise duals until the bound, so
-    ``dict(max_outer=16, opt_tol_ulps=1000.0)`` reaches 63 it/s within
-    ~1% of the exact trajectory's objective, and
-    ``dict(opt_tol_ulps=10000.0)`` 187 it/s within ~5% (docs/PERF.md).
+    ``opt_tol_ulps`` (CG dual tolerance; default 100).  A handful of
+    degenerate columns can cycle on CG-noise duals until the bound;
+    ``dict(max_outer=16, opt_tol_ulps=1000.0)`` stops them early at a
+    small cost in objective.
     """
     if distance_type not in ("eu", "kl"):
         raise KeyError("Unknown distance type.")
     if nnls_solver not in ("activeset", "bpp"):
         raise ValueError("nnls_solver must be 'activeset' or 'bpp'")
+    row = defaults()
     if masked_solver is None:
-        from .tpu_defaults import anls_masked_solver
-
-        masked_solver = anls_masked_solver(jax.default_backend())
+        masked_solver = row.spd_solver
     if masked_solver not in ("chol", "cg"):
         raise ValueError("masked_solver must be 'chol' or 'cg'")
     nnls_opts = dict(nnls_opts or {})
@@ -207,21 +202,15 @@ def anls(
         raise ValueError(
             "nnls_opts applies to the active-set solver only; it would be "
             "silently ignored with nnls_solver='bpp'")
-    if nnls_solver == "activeset" and masked_solver == "cg":
-        from .tpu_defaults import anls_cg_iters, anls_nnls_precision
-
-        nnls_opts.setdefault("cg_iters",
-                             anls_cg_iters(jax.default_backend()))
-        nnls_opts.setdefault("precision",
-                             anls_nnls_precision(jax.default_backend()))
+    if nnls_solver == "activeset":
+        if masked_solver == "cg":
+            nnls_opts.setdefault("cg_iters", row.cg_iters)
+        if row.nnls_precision is not None:
+            nnls_opts.setdefault("precision", row.nnls_precision)
     nnls_opts_t = tuple(sorted(nnls_opts.items()))
 
     x = jnp.asarray(x)
-    if use_pallas is None:
-        # case A workaround (solvers/tpu_defaults.py)
-        from .tpu_defaults import anls_use_pallas
-
-        use_pallas = anls_use_pallas(jax.default_backend())
+    use_pallas = use_kernels(x, k, use_pallas)
 
     experiment = AnlsExperiment(
         method="anls",
@@ -249,12 +238,6 @@ def anls(
             key if key is not None else jax.random.PRNGKey(0),
             x.shape[0], x.shape[1], k, kind="uniform", dtype=x.dtype,
         )
-
-    if device_loop is None:
-        # case B workaround (solvers/tpu_defaults.py)
-        from .tpu_defaults import anls_device_loop
-
-        device_loop = anls_device_loop(jax.default_backend(), masked_solver)
 
     obj0 = distance(x, w @ h, distance_type)
     carry = init_carry(obj0, max_iter, (w, h))

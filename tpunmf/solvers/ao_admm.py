@@ -8,7 +8,7 @@ primal/dual residuals with tol=1e-2 (nmf/ao_admm.py:33-43), the KL
 data-term split (nmf/ao_admm.py:71-101), and the W-subproblem solved by
 transposition (nmf/ao_admm.py:265-285).
 
-TPU-first notes: the inner ADMM loop is a ``lax.while_loop`` whose
+Design notes: the inner ADMM loop is a ``lax.while_loop`` whose
 predicate fuses the iteration bound with the residual test (the
 reference's data-dependent ``break``); the m*n GEMMs (``w.T @ y``,
 ``w @ h_aux``) are the collective points under sharding, everything else
@@ -26,7 +26,8 @@ import numpy as np
 from ..core.losses import distance
 from ..core.types import AoAdmmExperiment, Results
 from ..init import nndsvd, random_init
-from ..ops.fused import eu_residual_obj, kl_ratio_and_obj
+from ..core.backend import defaults, use_kernels
+from ..ops.fused import eu_residual_obj, kl_obj
 from ..prox import prox
 from .common import (  # noqa: F401
     verbose_precision,
@@ -50,7 +51,7 @@ def _chol(g, rho):
 def _subproblem_solve(g, rho, cho, b, method):
     """Inner normal-equation solve: reuse the Cholesky ('chol', the
     reference's structure, nmf/ao_admm.py:55-59) or GEMM-shaped CG ('cg',
-    fast on TPU — core/linalg.py)."""
+    core/linalg.py)."""
     if method == "chol":
         return jax.scipy.linalg.cho_solve((cho, True), b)
     from ..core.linalg import spd_solve
@@ -243,7 +244,7 @@ def _ao_admm_block(
             v.T, v_aux.T, dual_v.T, h.T, w.T, dual_w.T, prox_w, lambda_w
         )
         w, dual_w, v_aux, dual_v = wt.T, dual_wt.T, v_auxt.T, dual_vt.T
-        _, obj = kl_ratio_and_obj(v, w, h, use_pallas=use_pallas)
+        obj = kl_obj(v, w, h, use_pallas=use_pallas)
         return (w, h, dual_w, dual_h, v_aux, dual_v), obj
 
     def step_local_eu(inner, i):
@@ -277,7 +278,7 @@ def _ao_admm_block(
             upper_bound, adaptive, tau, eta, spd_solver,
             loop_style=loop_style,
         )
-        _, obj = kl_ratio_and_obj(v, w, h, use_pallas=use_pallas)
+        obj = kl_obj(v, w, h, use_pallas=use_pallas)
         return (w, h, w_aux, dual_w, dual_h, v_aux, dual_v), obj
 
     if local_sparsity:
@@ -344,23 +345,15 @@ def ao_admm(
     # adaptive rho (the reference variant always adapts); plain-prox
     # l1inf under fixed rho keeps round-1 behavior
     local_sparsity = rho_mode == "adaptive" and reg_w[1] == "l1inf"
-    from .tpu_defaults import ao_admm_inner_loop, ao_admm_spd_solver
-
-    # case-C restructure (solvers/tpu_defaults.py): the masked-fori inner
-    # loop removes one data-dependent nesting level, which is what lets
-    # the TPU backend take the fast CG subproblem solver at <=3-deep
-    loop_style = ao_admm_inner_loop(jax.default_backend())
+    row = defaults()
+    loop_style = row.inner_loop
     if spd_solver is None:
-        spd_solver = ao_admm_spd_solver(jax.default_backend())
+        spd_solver = row.spd_solver
     if spd_solver not in ("chol", "cg"):
         raise ValueError("spd_solver must be 'chol' or 'cg'")
 
     v = jnp.asarray(v)
-    if use_pallas is None:
-        # case A workaround (solvers/tpu_defaults.py)
-        from .tpu_defaults import ao_admm_use_pallas
-
-        use_pallas = ao_admm_use_pallas(jax.default_backend())
+    use_pallas = use_kernels(v, k, use_pallas)
 
     experiment = AoAdmmExperiment(
         method="ao_admm",

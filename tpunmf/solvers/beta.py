@@ -1,4 +1,4 @@
-"""Generalized beta-divergence MUR (Fevotte-Idier), TPU-native.
+"""Generalized beta-divergence MUR (Fevotte-Idier).
 
 Beyond-reference capability: the reference offers only Euclidean (beta=2)
 and KL (beta=1) objectives (nmf/utils.py:18-33).  The beta-divergence
@@ -23,7 +23,7 @@ lambda_h are ridge terms added to the denominators — the same heuristic
 form the reference uses for EU (nmf/mur.py:29); exact closed-form
 regularization exists only for beta in {1, 2} (use solvers/mur.py).
 
-TPU mapping: per iteration, 2 elementwise powers over the m x n
+Device mapping: per iteration, 2 elementwise powers over the m x n
 reconstruction + 4 GEMMs, all XLA-fused; the loop is the shared jitted
 while_loop driver.
 """

@@ -3,7 +3,7 @@
 The reference drives every solver with a sequential Python loop that
 appends to ``obj_history``, prints, and early-exits on a convergence check
 (reference: nmf/mur.py:119-143, nmf/anls.py:111-132, nmf/admm.py:292-342,
-nmf/ao_admm.py:259-308).  TPU-native redesign: each solver's whole
+nmf/ao_admm.py:259-308).  Redesign: each solver's whole
 iteration body is one jitted function and the loop is a
 ``lax.while_loop`` whose predicate fuses the max-iteration bound, an
 optional block bound (for periodic checkpointing), and the convergence
@@ -52,17 +52,13 @@ def inner_loop(body: Callable, init_state, n_iter: int, style: str):
     ``body(state) -> (new_state, done_now)``.
 
     'while'       ``lax.while_loop`` that stops as soon as done — the
-                  natural form, but a data-dependent loop level: with a
-                  CG solve inside it makes the AO-ADMM nest
-                  while > while > fori, which stalls the TPU compiler
-                  (case C, benchmarks/repro_nested.py).
+                  natural form, with a data-dependent loop level.
     'fori_masked' fixed-trip ``lax.fori_loop`` carrying a done flag and
                   freezing the state once done.  Identical iterates to
                   'while' (a frozen state IS the early-exited state);
-                  the fixed trip removes one data-dependent level so a
-                  CG inner solve sits <=3-deep (the case-C workaround
-                  that lets TPU AO-ADMM use the fast CG path).  Cost:
-                  the remaining (n_iter - t) masked steps still execute.
+                  the fixed trip removes one data-dependent loop level.
+                  Cost: the remaining (n_iter - t) masked steps still
+                  execute.
     """
     done0 = jnp.asarray(False)
     if style == "while":

@@ -14,7 +14,7 @@ positive/negative split ``K = K+ - K-``:
     W <- W * sqrt( (K+ G + K- W G^T G) / (K- G + K+ W G^T G) )
 
 Both are monotone for the objective ``||X - X W G^T||_F^2`` (their
-Thms 5-6).  TPU mapping: everything runs on the (n, n) Gram — computed
+Thms 5-6).  Device mapping: everything runs on the (n, n) Gram — computed
 once — so per-iteration cost is a handful of (n, k)-shaped GEMMs; the
 m axis is touched only at the end to emit the basis ``X W``.  Dense
 (n, n) K bounds practical n to ~20-40k columns (the regime convex NMF

@@ -14,8 +14,8 @@ eq. 14/15) keep the objective monotonically non-increasing:
     W <- W * (X H^T) / (W (H H^T))
     H <- H * (W^T X + lambda_g * H A) / ((W^T W) H + lambda_g * H D)
 
-TPU mapping: ``H A`` is one (k, n) @ (n, n) MXU GEMM per iteration —
-dense A is the TPU-native representation (no efficient gather SpMM);
+Device mapping: ``H A`` is one (k, n) @ (n, n) GEMM per iteration —
+A is kept dense (a GEMM in place of a gather-heavy SpMM);
 ``H D`` is an elementwise row scale.  With ``lambda_g = 0`` the updates
 reduce exactly to plain EU MUR.
 """

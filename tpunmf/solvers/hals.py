@@ -1,4 +1,4 @@
-"""HALS — hierarchical alternating least squares (accelerated), TPU-native.
+"""HALS — hierarchical alternating least squares (accelerated).
 
 Beyond-reference capability: the reference package has no HALS solver
 (its families are MUR/ANLS/ADMM/AO-ADMM, nmf/nmf.py:48-80), but HALS is
@@ -16,11 +16,11 @@ outer iteration, then the cheap column sweep (m*k^2 FLOPs) is repeated
 free, so each extra sweep buys convergence at ~zero HBM cost (the
 accelerated regime the paper derives as rho = 1 + mn/(m k + n)).
 
-TPU mapping: the column sweep is a ``lax.fori_loop`` over k with
-dynamic-slice column reads and rank-1 updates — the (m, k) @ (k,) matvec
-per column rides the VPU/MXU; the two m*n*k GEMMs per iteration dominate
-and stay MXU-bound, so HALS costs the same HBM traffic per outer
-iteration as fused EU-MUR while decreasing the objective faster.
+Device mapping: the column sweep is a ``lax.fori_loop`` over k with
+dynamic-slice column reads and rank-1 updates — a chain of k dependent
+(m, k) @ (k,) matvecs; the two m*n*k GEMMs per iteration read X once
+each, so HALS costs the same device-memory traffic per outer iteration
+as EU-MUR while decreasing the objective faster.
 
 Euclidean objective only (HALS is a least-squares coordinate method;
 use MUR/ADMM for KL).  Driver semantics (convergence, history,
@@ -39,12 +39,6 @@ from ..core.losses import eu_objective_gram
 from ..core.types import MurExperiment, Results
 from ..init import nndsvd, random_init
 from ..ops.fused import eu_residual_obj
-from ..ops.hals_sweep import (
-    gs_sweep,
-    gs_sweep_tileable,
-    hals_iter_tileable,
-    hals_iteration_eu,
-)
 from .common import (LoopCarry, finalize_history, host_array,
                      init_carry, run_loop, while_block)
 
@@ -84,78 +78,34 @@ def _hals_sweep_h(h, wtx, wtw, lam, unroll=1):
 @partial(
     jax.jit,
     static_argnames=("min_iter", "max_iter", "inner_sweeps", "objective",
-                     "verbose", "sweep_unroll", "use_pallas", "sweep_bm_w",
-                     "sweep_bm_h", "single_pass_bm"),
+                     "verbose", "sweep_unroll"),
 )
 def _hals_block(x, xsq, carry: LoopCarry, stop_i, tol1, tol2, lambda_w,
                 lambda_h, *, min_iter: int, max_iter: int, inner_sweeps: int,
-                objective: str, verbose: bool, sweep_unroll: int = 1,
-                use_pallas: bool = False, sweep_bm_w=None, sweep_bm_h=None,
-                single_pass_bm=None):
-    def step_single(inner, i):
-        """Whole W-half in ONE pass over X (ops/hals_sweep.py
-        hals_iteration_eu): strip GEMM + in-register sweeps + the
-        H-numerator/W-Gram accumulations; only the (cheap) H sweeps and
-        the free Gram objective remain outside.  Same HBM traffic per
-        iteration as single-pass MUR-EU."""
-        w, h = inner
-        w, wtx, wtw = hals_iteration_eu(x, w, h, lam_w=lambda_w,
-                                        nsweeps=inner_sweeps,
-                                        bm=single_pass_bm)
-        if sweep_bm_h is not None:
-            h = gs_sweep(wtx, wtw, h, lam=lambda_h,
-                         nsweeps=inner_sweeps, bm=sweep_bm_h)
-        else:
-            h = jax.lax.fori_loop(
-                0, inner_sweeps,
-                lambda t, h: _hals_sweep_h(h, wtx, wtw, lambda_h,
-                                           sweep_unroll), h
-            )
-        if objective == "gram":
-            obj = eu_objective_gram(xsq, wtx, wtw, h)
-        else:
-            obj = eu_residual_obj(x, w, h, use_pallas=use_pallas)
-        return (w, h), obj
-
+                objective: str, verbose: bool, sweep_unroll: int = 1):
     def step(inner, i):
         w, h = inner
         # --- W half: one m*n*k GEMM + k x k Gram, then cheap sweeps
         xht = x @ h.T
         hht = h @ h.T
-        if sweep_bm_w is not None:
-            # whole chain in one Pallas kernel (transposed frame): the
-            # k-step Gauss-Seidel sweep is row-parallel over m, so the
-            # latency-bound 4k-dispatch fori chain collapses to one
-            # grid-parallel kernel launch (ops/hals_sweep.py)
-            wt = gs_sweep(xht.T, hht, w.T, lam=lambda_w,
-                          nsweeps=inner_sweeps, bm=sweep_bm_w)
-            w = wt.T
-        else:
-            w = jax.lax.fori_loop(
-                0, inner_sweeps,
-                lambda t, w: _hals_sweep_w(w, xht, hht, lambda_w,
-                                           sweep_unroll), w
-            )
+        w = jax.lax.fori_loop(
+            0, inner_sweeps,
+            lambda t, w: _hals_sweep_w(w, xht, hht, lambda_w, sweep_unroll), w
+        )
         # --- H half (mirror)
         wtx = w.T @ x
         wtw = w.T @ w
-        if sweep_bm_h is not None:
-            h = gs_sweep(wtx, wtw, h, lam=lambda_h,
-                         nsweeps=inner_sweeps, bm=sweep_bm_h)
-        else:
-            h = jax.lax.fori_loop(
-                0, inner_sweeps,
-                lambda t, h: _hals_sweep_h(h, wtx, wtw, lambda_h,
-                                           sweep_unroll), h
-            )
+        h = jax.lax.fori_loop(
+            0, inner_sweeps,
+            lambda t, h: _hals_sweep_h(h, wtx, wtw, lambda_h, sweep_unroll), h
+        )
         if objective == "gram":
             obj = eu_objective_gram(xsq, wtx, wtw, h)
         else:
-            obj = eu_residual_obj(x, w, h, use_pallas=use_pallas)
+            obj = eu_residual_obj(x, w, h)
         return (w, h), obj
 
-    chosen = step_single if single_pass_bm is not None else step
-    return while_block(chosen, carry, stop_i, tol1, tol2, min_iter=min_iter,
+    return while_block(step, carry, stop_i, tol1, tol2, min_iter=min_iter,
                        max_iter=max_iter, verbose=verbose)
 
 
@@ -229,26 +179,13 @@ def hals(
         xsq = jnp.sum(xf * xf)
     else:
         xsq = jnp.zeros((), dtype=x.dtype)  # unused by the exact objective
-    from . import tpu_defaults
-
-    use_pallas = tpu_defaults.hals_use_pallas(jax.default_backend())
-    sweep_bm_w = sweep_bm_h = single_pass_bm = None
-    if (tpu_defaults.hals_use_sweep_kernel(jax.default_backend())
-            and x.dtype == jnp.float32):
-        sweep_bm_w = gs_sweep_tileable(k, x.shape[0])
-        sweep_bm_h = gs_sweep_tileable(k, x.shape[1])
-        if tpu_defaults.hals_single_pass(jax.default_backend()):
-            single_pass_bm = hals_iter_tileable(x, k)
-    obj0 = eu_residual_obj(x, w, h, use_pallas=use_pallas)
+    obj0 = eu_residual_obj(x, w, h)
     carry = init_carry(obj0, max_iter, (w, h))
 
     run = lambda c, stop: _hals_block(
         x, xsq, c, stop, tol1, tol2, lambda_w, lambda_h, min_iter=min_iter,
         max_iter=max_iter, inner_sweeps=inner_sweeps, objective=objective,
-        sweep_unroll=sweep_unroll,
-        verbose=verbose, use_pallas=use_pallas,
-        sweep_bm_w=sweep_bm_w, sweep_bm_h=sweep_bm_h,
-        single_pass_bm=single_pass_bm,
+        sweep_unroll=sweep_unroll, verbose=verbose,
     )
     carry = run_loop(
         run, carry, max_iter=max_iter, block_size=block_size,

@@ -19,9 +19,9 @@ NMF"):
 Monotonicity of the masked objective follows from the same
 majorize-minimize argument as unmasked MUR (the mask only re-weights
 each cell's convex term).  With M = ones this reduces exactly to
-solvers/mur.py's updates.  TPU mapping: M⊙(WH) forces one extra m x n
-elementwise pass per half-update — 4 fused GEMM+mask passes per
-iteration; XLA fuses the mask products into the GEMM operands.
+solvers/mur.py's updates.  M⊙(WH) forces one extra m x n elementwise
+pass per half-update — 4 GEMM+mask passes per iteration; XLA fuses the
+mask products into the GEMM operands.
 """
 from __future__ import annotations
 
@@ -56,30 +56,17 @@ def _masked_kl_obj(x, mask, w, h):
 
 @partial(
     jax.jit,
-    static_argnames=("distance_type", "min_iter", "max_iter", "verbose",
-                     "fused_tile"),
+    static_argnames=("distance_type", "min_iter", "max_iter", "verbose"),
 )
 def _mur_masked_block(x, mask, carry: LoopCarry, stop_i, tol1, tol2,
                       lambda_w, lambda_h, *, distance_type: str,
-                      min_iter: int, max_iter: int, verbose: bool,
-                      fused_tile=None):
+                      min_iter: int, max_iter: int, verbose: bool):
     def step_eu(inner, i):
         w, h = inner
-        if fused_tile is not None:
-            # one pass over (X, M) per half-update: mask tiles ride the
-            # same DMA, WH tiles form in-register (ops/masked_fused.py)
-            from ..ops.masked_fused import masked_h_update, masked_w_update
-
-            bm, bn = fused_tile
-            w = masked_w_update(x, mask, w, h, distance_type="eu",
-                                lam=lambda_w, bm=bm, bn=bn)
-            h = masked_h_update(x, mask, w, h, distance_type="eu",
-                                lam=lambda_h, bm=bm, bn=bn)
-        else:
-            mx_ht = (mask * x) @ h.T               # constant per W-update
-            w = w * mx_ht / ((mask * (w @ h)) @ h.T + lambda_w * w + _EPS)
-            wt_mx = w.T @ (mask * x)
-            h = h * wt_mx / (w.T @ (mask * (w @ h)) + lambda_h * h + _EPS)
+        mx_ht = (mask * x) @ h.T               # constant per W-update
+        w = w * mx_ht / ((mask * (w @ h)) @ h.T + lambda_w * w + _EPS)
+        wt_mx = w.T @ (mask * x)
+        h = h * wt_mx / (w.T @ (mask * (w @ h)) + lambda_h * h + _EPS)
         return (w, h), _masked_eu_obj(x, mask, w, h)
 
     def step_kl(inner, i):
@@ -87,25 +74,16 @@ def _mur_masked_block(x, mask, carry: LoopCarry, stop_i, tol1, tol2,
         # numerator and denominator — any value is optimal there, so the
         # factor entry is left unchanged instead of 0/0 -> NaN
         w, h = inner
-        if fused_tile is not None:
-            from ..ops.masked_fused import masked_h_update, masked_w_update
-
-            bm, bn = fused_tile
-            w = masked_w_update(x, mask, w, h, distance_type="kl",
-                                lam=lambda_w, bm=bm, bn=bn)
-            h = masked_h_update(x, mask, w, h, distance_type="kl",
-                                lam=lambda_h, bm=bm, bn=bn)
-        else:
-            r = mask * x / (w @ h + _EPS)
-            a = w * (r @ h.T)
-            b = mask @ h.T                         # replaces ones @ h.T
-            den = b + jnp.sqrt(b * b + 4.0 * lambda_w * a)
-            w = jnp.where(den > 0, 2.0 * a / jnp.where(den > 0, den, 1.0), w)
-            r2 = mask * x / (w @ h + _EPS)
-            c = h * (w.T @ r2)
-            d = w.T @ mask                         # replaces w.T @ ones
-            den = d + jnp.sqrt(d * d + 4.0 * lambda_h * c)
-            h = jnp.where(den > 0, 2.0 * c / jnp.where(den > 0, den, 1.0), h)
+        r = mask * x / (w @ h + _EPS)
+        a = w * (r @ h.T)
+        b = mask @ h.T                         # replaces ones @ h.T
+        den = b + jnp.sqrt(b * b + 4.0 * lambda_w * a)
+        w = jnp.where(den > 0, 2.0 * a / jnp.where(den > 0, den, 1.0), w)
+        r2 = mask * x / (w @ h + _EPS)
+        c = h * (w.T @ r2)
+        d = w.T @ mask                         # replaces w.T @ ones
+        den = d + jnp.sqrt(d * d + 4.0 * lambda_h * c)
+        h = jnp.where(den > 0, 2.0 * c / jnp.where(den > 0, den, 1.0), h)
         return (w, h), _masked_kl_obj(x, mask, w, h)
 
     step = step_kl if distance_type == "kl" else step_eu
@@ -178,32 +156,13 @@ def mur_masked(
             x.shape[0], x.shape[1], k, kind="abs_normal", dtype=x.dtype,
         )
 
-    from . import tpu_defaults
-
-    fused_tile = None
-    if tpu_defaults.mur_use_pallas(jax.default_backend()):
-        from ..ops.masked_fused import masked_tileable
-
-        binary = bool(jnp.all((mask == 0) | (mask == 1)))
-        fused_tile = masked_tileable(
-            x, k, mask_itemsize=1 if binary else x.dtype.itemsize)
-        if fused_tile is not None:
-            # the kernels compute/emit float32 factors (X/M may stay bf16)
-            w = w.astype(jnp.float32)
-            h = h.astype(jnp.float32)
-            # a BINARY mask is exact in int8 — quarter its DMA bytes vs
-            # f32 (the kernels read M alongside X every pass and convert
-            # in-register); real-valued weight masks keep their dtype
-            if binary:
-                mask = mask.astype(jnp.int8)
-
     obj0 = (_masked_kl_obj if distance_type == "kl" else _masked_eu_obj)(
         x, mask, w, h)
     carry = init_carry(obj0, max_iter, (w, h))
     run = lambda c, stop: _mur_masked_block(
         x, mask, c, stop, tol1, tol2, lambda_w, lambda_h,
         distance_type=distance_type, min_iter=min_iter, max_iter=max_iter,
-        verbose=verbose, fused_tile=fused_tile,
+        verbose=verbose,
     )
     carry = run_loop(
         run, carry, max_iter=max_iter, block_size=block_size,

@@ -7,7 +7,7 @@ solution prolongates into an excellent warm start for the fine problem,
 cutting total time-to-objective — most iterations happen at a fraction
 of the full problem's cost.
 
-TPU-first mapping: the restriction operator is plain column aggregation
+Device mapping: the restriction operator is plain column aggregation
 — ``X_c[:, j] = sum of a group of `factor` adjacent columns`` — which is
 one reshape+sum (bandwidth-bound, single pass); prolongation spreads
 each coarse H column uniformly over its group (``repeat / factor``).

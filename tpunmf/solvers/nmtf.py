@@ -13,7 +13,7 @@ orthogonality-penalized objective):
     F <- F * sqrt( (X G S^T)   / (F F^T X G S^T) )
     S <- S * sqrt( (F^T X G)   / (F^T F S G^T G) )
 
-TPU mapping: numerators are two m*n*k-class GEMMs per factor; the
+Device mapping: numerators are two m*n*k-class GEMMs per factor; the
 orthogonality denominators are grouped k-first (``G (G^T N)`` etc.) so
 nothing n x n or m x m is ever formed.
 """

@@ -1,4 +1,4 @@
-"""NTF — non-negative tensor (CP/PARAFAC) factorization, TPU-native.
+"""NTF — non-negative tensor (CP/PARAFAC) factorization.
 
 Beyond-reference capability with a direct lineage: the reference's legacy
 CLI ingests 3-D photoacoustic (MSOT) stacks and *flattens* them to 2-D in
@@ -18,10 +18,10 @@ with every factor ``Fd >= 0``.  Two update families:
     (CP-HALS, Cichocki & Phan 2009), Euclidean only; fewer sweeps to a
     given objective, same per-iteration GEMM cost.
 
-TPU mapping.  All heavy lifting is MTTKRP (matricized-tensor times
+Device mapping.  All heavy lifting is MTTKRP (matricized-tensor times
 Khatri-Rao product), expressed as one ``einsum`` per mode —
 ``einsum('abc,bz,cz->az', X, B, C)`` for mode 0 of a 3-way tensor —
-which XLA contracts as a chain of dense GEMMs on the MXU without ever
+which XLA contracts as a chain of dense GEMMs without ever
 materializing the Khatri-Rao matrix or an unfolded copy of ``X``.  The
 k x k mode Grams are Hadamard products of per-factor Grams, so the
 Euclidean objective needs NO reconstruction:

@@ -102,12 +102,9 @@ class OnlineNMF:
         self.obj_history: list = []
         self.track_objective = bool(track_objective)
         self._batch_width = 0
-        # same fence as ANLS: batched Cholesky in deep while nesting
-        # stalls the current TPU runtime (tpu_defaults case B) — and CG
-        # is the faster NNLS inner solve there anyway
-        from .tpu_defaults import anls_masked_solver
+        from ..core.backend import defaults
 
-        self._solve_method = anls_masked_solver(jax.default_backend())
+        self._solve_method = defaults().spd_solver
 
     @property
     def w(self):

@@ -13,9 +13,9 @@ so ONMF is a soft k-means on the columns of X — the clustering member
 of the NMF family.  The orthogonal-W variant is the row-clustering
 mirror (applied by transposition).
 
-TPU notes: the denominator is grouped as ``((W^T X) H^T) H`` — two
+Design notes: the denominator is grouped as ``((W^T X) H^T) H`` — two
 k x k-bounded GEMMs instead of the n x n Gram the textbook ordering
-implies; everything else is the same MXU traffic as one EU-MUR
+implies; everything else is the same GEMM traffic as one EU-MUR
 iteration.  ``obj_history`` records the EU objective; the orthogonality
 residual ``||H H^T - diag(H H^T)||_F`` is returned separately since the
 Ding updates trade reconstruction for orthogonality (the EU objective

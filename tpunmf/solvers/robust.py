@@ -16,7 +16,7 @@ which are exactly the Lee-Seung rules on the column-reweighted problem;
 the paper proves monotone non-increase of the l2,1 objective under the
 alternating scheme.
 
-TPU mapping: D is diagonal over columns, so ``X D`` / ``H D`` are
+Device mapping: D is diagonal over columns, so ``X D`` / ``H D`` are
 elementwise row-broadcast scalings fused into the surrounding GEMMs by
 XLA.  The residual column norms never materialize ``W @ H``:
 

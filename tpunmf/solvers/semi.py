@@ -1,4 +1,4 @@
-"""Semi-NMF (Ding-Li-Jordan 2010), TPU-native.
+"""Semi-NMF (Ding-Li-Jordan 2010).
 
 Beyond-reference capability: every reference solver requires (or forces,
 via elevation — nmf/mur.py:99-102) non-negative data.  Semi-NMF
@@ -13,7 +13,7 @@ distorts the geometry:
                        ((W^T X)^- + (W^T W)^+ H + eps) )
     with A^+ = (|A| + A)/2, A^- = (|A| - A)/2.
 
-Per iteration: 2 m*n*k GEMMs + one k x k solve — same MXU shape as
+Per iteration: 2 m*n*k GEMMs + one k x k solve — same GEMM shape as
 EU-MUR.  Driver semantics (convergence, history, checkpointing) are the
 shared solvers/common machinery.
 """

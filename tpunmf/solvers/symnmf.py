@@ -9,7 +9,7 @@ multiplicative rule with the 1/2-mixing that guarantees non-increase:
 
     H <- H * ( (1 - beta) + beta * (A H) / (H (H^T H)) ),  beta = 1/2
 
-TPU mapping: one (n, n) @ (n, k) GEMM plus k x k algebra per iteration;
+Device mapping: one (n, n) @ (n, k) GEMM plus k x k algebra per iteration;
 the denominator groups as ``H (H^T H)`` so nothing n x n beyond A is
 formed.  Compose with :func:`tpunmf.solvers.knn_graph` to cluster raw
 data columns.

@@ -3,6 +3,7 @@ from .profiling import (
     debug_nans,
     determinism_check,
     enable_compilation_cache,
+    gpu_label,
     named_scope,
     trace,
 )
@@ -15,4 +16,5 @@ __all__ = [
     "debug_nans",
     "determinism_check",
     "enable_compilation_cache",
+    "gpu_label",
 ]
